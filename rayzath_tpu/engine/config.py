@@ -26,32 +26,16 @@ class LightSampling:
 class RenderConfig:
     tracing: Tracing = Tracing()
     light_sampling: LightSampling = LightSampling()
-    # TPU-specific knobs (not in reference):
+    # knobs not in the reference:
     # Scenes with <= this many triangles take the dense XLA projection test
-    # (one fused chunk, no tables). Default 0: the Pallas cluster traversal
-    # (ops/traverse_cluster.py) handles every size — measured on-chip it is
-    # within ~11% of the dense path even on the 36-triangle Cornell
-    # (124 vs 139 Mrays/s) while compiling in ~20 s instead of ~11 MINUTES
-    # (the dense path's [R,F] program triggers pathological XLA compiles).
+    # (ops/intersect.project_closest) instead of the BVH walk. Default 0:
+    # every scene walks the BVH.
     brute_force_threshold: int = 0
     bvh_leaf_size: int = 8
     chunk: int = 512                   # brute-force triangle tile size
-    # Use the Pallas cluster kernels. False falls back to the pure-XLA
-    # skip-link walk (ops/traverse.py) — the escape hatch for backends where
-    # Mosaic is unavailable (the GSPMD auto-sharded path; shard_map keeps
-    # Pallas, parallel/mesh.py).
-    packet_traversal: bool = True
-    # Acceleration structure: None = auto (two-level TLAS/BLAS when instancing
-    # would duplicate geometry substantially; world-space soup otherwise).
-    # True/False forces the choice.
-    two_level: Optional[bool] = None
     # Sort rays by the Morton-major spatial-directional coherence key
-    # before traversal (ops/sort_rays.py). None = auto: sorting costs a
-    # fixed ~2.7 ms per call (XLA argsort at 512^2), so it is enabled only
-    # for scenes whose candidate table is large enough that incoherent
-    # bounce blocks would otherwise enumerate hundreds of clusters
-    # (>= 192 candidates; see tools/visitstats.py measurements). Small
-    # scenes rely on reshape-only 32x32 image tiling instead.
+    # before traversal (ops/sort_rays.py). None = auto (integrator
+    # _sort_traversal: scenes past ~2k triangles); True/False forces it.
     ray_sort: Optional[bool] = None
 
     def with_(self, **kw) -> "RenderConfig":

@@ -1,12 +1,11 @@
 """Wavefront path-tracing integrator (JAX, differentiable).
 
-TPU-native redesign of the reference CUDA megakernel
+Wavefront redesign of the reference CUDA megakernel
 (RayZath/cuda_render_kernel.cu:7-355): instead of one persistent thread per
 pixel, the whole wavefront of R = W*H rays advances ONE bounce per
 ``bounce_step`` over SoA buffers; terminated paths regenerate camera rays
 in place, so every step is fully occupied regardless of depth divergence
-(the reference's own regeneration-in-place strategy, cuda_render_kernel.cu:50-65,
-mapped onto vectorized TPU compute).
+(the reference's own regeneration-in-place strategy, cuda_render_kernel.cu:50-65).
 
 Behavioral spec kept bit-compatible with the CUDA path (the "GPU semantics" of
 SURVEY.md §2.4): Beer's-law absorption (cuda_render_kernel.cu:162-176),
@@ -41,11 +40,7 @@ from ..ops.gather import gather_rows
 from ..ops.intersect import (project_closest, project_shadow, refine_hit,
                              refine_tri)
 from ..ops.sort_rays import sort_payload, unsort_payload
-from ..ops.traverse import bvh_closest, bvh_shadow
-from ..ops.traverse_cluster import (cluster_closest, cluster_shadow,
-                                    cluster_closest_inst,
-                                    cluster_shadow_inst,
-                                    BLOCK as _CLUSTER_BLOCK)
+from ..ops import traverse
 from ..ops.vec import (dot, normalize, lerp, reflect, halfway,
                        cosine_sample_hemisphere, sample_sphere, sample_hemisphere,
                        sample_disk, fresnel_specular_ratio, cross)
@@ -74,8 +69,7 @@ def mat_pack(scene: DeviceScene) -> jnp.ndarray:
     """[M,14] packed material rows, built in-jit from the editable/trainable
     SoA leaves (gradients and live edits flow through the concat): color 0:4,
     metalness 4, roughness 5, emission 6, ior 7, scattering 8, maps 9:14.
-    One [R]-row gather of this table replaces seven separate gathers
-    (measured ~3.4 ms each at 512^2 — the dominant bounce_step cost)."""
+    One [R]-row gather of this table replaces seven separate gathers."""
     return jnp.concatenate([
         scene.mat_color,
         scene.mat_metalness[:, None], scene.mat_roughness[:, None],
@@ -126,9 +120,6 @@ def material_fetch(scene: DeviceScene, mp, mat_id, texcrd) -> MatProps:
 # ---------------------------------------------------------------------------
 
 TILE = 32  # image tile side
-# one image tile must fill exactly one traversal block, or tiles silently
-# misalign with blocks and the coherence win disappears
-assert TILE * TILE == _CLUSTER_BLOCK
 
 
 def _tileable(hw, r: int) -> bool:
@@ -138,8 +129,8 @@ def _tileable(hw, r: int) -> bool:
 
 def _tile(x, hw):
     """Permute row-major rays into 32x32 image tiles (reshape/transpose only —
-    no gathers). One packet block then covers a narrow frustum instead of two
-    full image rows, so the shared walk's any_hit pruning skips subtrees."""
+    no gathers). Consecutive rays then cover a narrow frustum instead of
+    whole image rows, so neighbouring rays walk similar subtrees."""
     h, w = hw
     t = TILE
     rest = x.shape[1:]
@@ -158,28 +149,23 @@ def _untile(x, hw):
 
 
 def _sort_traversal(cfg: RenderConfig, scene: DeviceScene) -> bool:
-    """Effective ray-sort decision. None = auto: the payload-carrying radix
-    sort (ops/sort_rays.sort_payload) costs a fixed ~0.9 ms per 512^2 call
-    (measured on-chip; the previous argsort+gather machinery cost ~18 ms),
-    and on bounce wavefronts it cuts gated cluster visits ~2-4x
-    (tools/r5probe.py) — so it pays for any scene whose candidate table is
-    big enough that blocks visit more than a handful of clusters."""
+    """Effective ray-sort decision. None = auto: sort with the payload radix
+    sort (ops/sort_rays.sort_payload) when the BVH has enough leaves that an
+    incoherent bounce wavefront would spread over many of them — about the
+    scale of 2k triangles. Small scenes rely on 32x32 image tiling only."""
     if cfg.ray_sort is not None:
         return cfg.ray_sort
-    n_cand = scene.n_instances if scene.two_level else scene.n_clusters
-    # threshold from BENCH A/B: glass_and_fog (~19 clusters) ran 15.8 Mrays/s
-    # sorted vs 12.3 unsorted; multi_light (~5 clusters) was indifferent
-    return n_cand >= 16
+    return scene.n_leaves >= 256
 
 
 def _run_coherent(cfg: RenderConfig, hw, o, d, extras, run, sort=False):
-    """Run a cluster traversal on a coherence-maximized ray order.
+    """Run a traversal on a coherence-maximized ray order.
 
     ``run(o, d, *extras) -> tuple of per-ray arrays``. With ``sort``: order
     rays by the Morton-major spatial-directional key (ops/sort_rays.py) and
-    scatter results back — this keeps the per-block candidate sets tight
-    even for incoherent bounce wavefronts. Otherwise: 32x32 image tiling,
-    which helps the primary-dominated passes for free."""
+    scatter results back, so neighbouring rays walk similar subtrees even
+    for incoherent bounce wavefronts. Otherwise: 32x32 image tiling, which
+    helps the primary-dominated passes for free."""
     if sort:
         o_s, d_s, extras_s, idx_s = sort_payload(o, d, extras)
         outs = run(o_s, d_s, *extras_s)
@@ -190,80 +176,24 @@ def _run_coherent(cfg: RenderConfig, hw, o, d, extras, run, sort=False):
     return run(o, d, *extras)
 
 
-def _apply_fwd(fwd_rows, v, translate: bool):
-    """Apply per-ray object->world 3x4 transforms ([R,12] row-major) to [R,3]
-    vectors (points when ``translate``)."""
-    a = fwd_rows
-    out = jnp.stack([
-        a[:, 0] * v[:, 0] + a[:, 1] * v[:, 1] + a[:, 2] * v[:, 2],
-        a[:, 4] * v[:, 0] + a[:, 5] * v[:, 1] + a[:, 6] * v[:, 2],
-        a[:, 8] * v[:, 0] + a[:, 9] * v[:, 1] + a[:, 10] * v[:, 2]], axis=1)
-    if translate:
-        out = out + jnp.stack([a[:, 3], a[:, 7], a[:, 11]], axis=1)
-    return out
-
-
-def _apply_nrm(nrm_rows, v):
-    """Per-ray normal matrices ([R,9] row-major 3x3) applied to [R,3]."""
-    a = nrm_rows
-    return jnp.stack([
-        a[:, 0] * v[:, 0] + a[:, 1] * v[:, 1] + a[:, 2] * v[:, 2],
-        a[:, 3] * v[:, 0] + a[:, 4] * v[:, 1] + a[:, 5] * v[:, 2],
-        a[:, 6] * v[:, 0] + a[:, 7] * v[:, 1] + a[:, 8] * v[:, 2]], axis=1)
-
-
 def closest_hit(scene: DeviceScene, cfg: RenderConfig, o, d, near, far,
                 hw=None):
-    """Returns (t, tri_id, inst_id, b1, b2, external, tp); ids are
-    stop-gradient, (t,b1,b2) re-derived differentiably (path-replay).
-    ``inst_id`` is None on the soup path (instance resolved via tri_inst).
-    ``tp`` is the hit's packed attribute row ([R,32], see
-    DeviceScene.tri_pack; WORLD-space geometry in both modes) — gathered
-    once here so callers never re-gather per-attribute."""
-    if scene.two_level:
-        t, tid, inst = _run_coherent(
-            cfg, hw, o, d, (near, far),
-            lambda o, d, near, far: cluster_closest_inst(
-                o, d, near, far, scene.ti_box, scene.ti_rows, scene.cl_obox,
-                scene.cl_lw, max_ncl=scene.max_ncl),
-            sort=_sort_traversal(cfg, scene))
-        tp = gather_rows(scene.tri_pack, jnp.maximum(tid, 0))
-        # object -> world (reference Instance transforms the ray instead,
-        # cuda_instance.cuh:186-229 — same hit, world shading); normals by
-        # the inverse-transpose rows
-        fwd = gather_rows(scene.inst_fwd, jnp.maximum(inst, 0))
-        nrm = gather_rows(scene.inst_nrm, jnp.maximum(inst, 0))
-        parts = [_apply_fwd(fwd, tp[:, 0:3], True),
-                 _apply_fwd(fwd, tp[:, 3:6], False),
-                 _apply_fwd(fwd, tp[:, 6:9], False)]
-        for base in (9, 12, 15):
-            n_w = _apply_nrm(nrm, tp[:, base:base + 3])
-            parts.append(n_w / jnp.maximum(
-                jnp.linalg.norm(n_w, axis=1, keepdims=True), 1e-20))
-        tp = jnp.concatenate(parts + [tp[:, 18:]], axis=1)
+    """Returns (t, tri_id, b1, b2, external, tp); ids are stop-gradient,
+    (t,b1,b2) re-derived differentiably (path-replay). ``tp`` is the hit's
+    packed attribute row ([R,32], see DeviceScene.tri_pack) — gathered once
+    here so callers never re-gather per-attribute."""
+    if scene.n_triangles <= cfg.brute_force_threshold:
+        t, tid = project_closest(o, d, near, far, scene.tri_pw, scene.tri_pc,
+                                 chunk=min(cfg.chunk, scene.tri_v0.shape[0]))
     else:
-        if (scene.n_triangles <= cfg.brute_force_threshold
-                or scene.cl_box is None):
-            t, tid = project_closest(o, d, near, far, scene.tri_pw,
-                                     scene.tri_pc,
-                                     chunk=min(cfg.chunk,
-                                               scene.tri_v0.shape[0]))
-        elif cfg.packet_traversal:
-            t, tid = _run_coherent(
-                cfg, hw, o, d, (near, far),
-                lambda o, d, near, far: cluster_closest(
-                    o, d, near, far, scene.cl_box, scene.cl_lw,
-                    scene.cl_order, n_real=scene.n_clusters),
-                sort=_sort_traversal(cfg, scene))
-        else:
-            hit = bvh_closest(o, d, near, far,
-                              scene.aabb_links, scene.node_begin,
-                              scene.node_count, scene.tri_v0, scene.tri_e1,
-                              scene.tri_e2, leaf_size=cfg.bvh_leaf_size)
-            t, tid = hit.t, hit.tri_id
-        inst = None
-        tid = jax.lax.stop_gradient(tid)
-        tp = gather_rows(scene.tri_pack, jnp.maximum(tid, 0))
+        t, tid = _run_coherent(
+            cfg, hw, o, d, (near, far),
+            lambda o, d, near, far: traverse.closest(
+                o, d, near, far, scene.aabb_links, scene.node_begin,
+                scene.node_count, scene.tri_v0, scene.tri_e1, scene.tri_e2),
+            sort=_sort_traversal(cfg, scene))
+    tid = jax.lax.stop_gradient(tid)
+    tp = gather_rows(scene.tri_pack, jnp.maximum(tid, 0))
     t_r, b1_r, b2_r, det = refine_tri(o, d, tp[:, 0:3], tp[:, 3:6],
                                       tp[:, 6:9])
     ext = jax.lax.stop_gradient(det > 0.0)
@@ -271,7 +201,7 @@ def closest_hit(scene: DeviceScene, cfg: RenderConfig, o, d, near, far,
     t = jnp.where(hit_mask, t_r, jax.lax.stop_gradient(t))
     b1 = jnp.where(hit_mask, b1_r, 0.0)
     b2 = jnp.where(hit_mask, b2_r, 0.0)
-    return t, tid, inst, b1, b2, ext, tp
+    return t, tid, b1, b2, ext, tp
 
 
 def texture_shadow_factor(scene: DeviceScene, o, d, dist, chunk: int = 512):
@@ -360,40 +290,18 @@ def shadow_test(scene: DeviceScene, cfg: RenderConfig, o, d, dist, hw=None):
 
 
 def _shadow_core(scene: DeviceScene, cfg: RenderConfig, o, d, dist, hw=None):
-    if scene.two_level:
-        # opacity resolved live per (instance, slot) from the material
-        # table inside the kernel wrapper: edits and training are never
-        # stale, gradients flow to mat_color through the replay vjp
-        def run(o, d, dist):
-            return cluster_shadow_inst(
-                o, d, dist, scene.ti_box, scene.ti_rows, scene.cl_obox,
-                scene.cl_lw, scene.cl_slot, scene.tri_slot,
-                scene.inst_slot_map, scene.mat_color,
-                scene.tri_v0, scene.tri_e1, scene.tri_e2,
-                scene.exp_tri, scene.exp_inst, scene.inst_fwd,
-                max_ncl=scene.max_ncl)
-
-        return _run_coherent(cfg, hw, o, d, (dist,), run,
-                             sort=_sort_traversal(cfg, scene))
-
     op_rgb = scene.mat_color[scene.tri_mat][:, :3]
     op_a = 1.0 - scene.mat_color[scene.tri_mat][:, 3]
-    if scene.n_triangles <= cfg.brute_force_threshold or scene.cl_box is None:
+    if scene.n_triangles <= cfg.brute_force_threshold:
         return project_shadow(o, d, dist, scene.tri_pw, scene.tri_pc,
                               op_rgb, op_a,
                               chunk=min(cfg.chunk, scene.tri_v0.shape[0]))
-    if cfg.packet_traversal:
-        return _run_coherent(
-            cfg, hw, o, d, (dist,),
-            lambda o, d, dist: cluster_shadow(
-                o, d, dist, scene.cl_box, scene.cl_lw, scene.cl_order,
-                scene.cl_base, scene.cl_count, scene.tri_v0, scene.tri_e1,
-                scene.tri_e2, op_rgb, op_a, n_real=scene.n_clusters),
-            sort=_sort_traversal(cfg, scene))
-    return bvh_shadow(o, d, dist,
-                      scene.aabb_links, scene.node_begin, scene.node_count,
-                      scene.tri_v0, scene.tri_e1, scene.tri_e2, op_rgb, op_a,
-                      leaf_size=cfg.bvh_leaf_size)
+    return _run_coherent(
+        cfg, hw, o, d, (dist,),
+        lambda o, d, dist: traverse.shadow(
+            o, d, dist, scene.aabb_links, scene.node_begin, scene.node_count,
+            scene.tri_v0, scene.tri_e1, scene.tri_e2, op_rgb, op_a),
+        sort=_sort_traversal(cfg, scene))
 
 
 # ---------------------------------------------------------------------------
@@ -407,10 +315,10 @@ def brdf_eval(d_in, mapped_normal, surface_scattering, roughness, alpha_op,
     n_dot_o = dot(mapped_normal, vpl)
     n_dot_i = dot(mapped_normal, -d_in)
     vh = halfway(d_in, vpl)
-    # clip: both vectors are unit only to rsqrt accuracy, and on TPU the
+    # clip: both vectors are unit only to rsqrt accuracy, and an
     # approximate rsqrt can push |n_dot_h| past 1.00005 — then b crosses
     # zero for roughness 0 (mirrors) and ndf becomes inf, which turns the
-    # MIS weight vs_pdf/(vs_pdf + l_pdf) into NaN (observed on-chip)
+    # MIS weight vs_pdf/(vs_pdf + l_pdf) into NaN
     n_dot_h = jnp.clip(dot(mapped_normal, vh), -1.0, 1.0)
     b = n_dot_h * n_dot_h * (roughness - 1.0) + 1.0001
     ndf = (roughness + 1e-5) / (b * b)
@@ -636,7 +544,7 @@ def bounce_step(scene: DeviceScene, cam: DeviceCamera, cfg: RenderConfig,
     far_eff = jnp.where(has_scatter, jnp.minimum(far, scat_dist), far)
 
     # --- closest intersection (tp = the hit's packed attribute row) ---
-    t, tri_id, inst_id, b1, b2, external, tp = closest_hit(
+    t, tri_id, b1, b2, external, tp = closest_hit(
         scene, cfg, o, d, near, far_eff, hw=(H, W))
     hit_obj = tri_id >= 0
     scatter_evt = has_scatter & ~hit_obj & (scat_dist < far)
@@ -665,15 +573,7 @@ def bounce_step(scene: DeviceScene, cam: DeviceCamera, cfg: RenderConfig,
 
     e1, e2 = tp[:, 3:6], tp[:, 6:9]
     n0_w, n1_w, n2_w = tp[:, 9:12], tp[:, 12:15], tp[:, 15:18]
-    if scene.two_level:
-        # material resolved through the instance's slot table (reference
-        # Instance::analyzeIntersection, cuda_instance.cuh:231-264)
-        inst = jnp.maximum(inst_id, 0)
-        slot = jnp.rint(tp[:, 24]).astype(jnp.int32)
-        tri_mat_hit = gather_rows(scene.inst_slot_map.reshape(-1),
-                                  inst * 64 + slot)
-    else:
-        tri_mat_hit = jnp.rint(tp[:, 24]).astype(jnp.int32)
+    tri_mat_hit = jnp.rint(tp[:, 24]).astype(jnp.int32)
 
     surf_mat = jnp.where(hit_obj, tri_mat_hit,
                          jnp.where(scatter_evt, med, WORLD_MATERIAL_ID))
@@ -865,15 +765,9 @@ def ray_cast(scene: DeviceScene, cam: DeviceCamera, cfg: RenderConfig,
     depth = state.depth_buf[pixel_y, pixel_x]
     near = depth * 0.99 * jnp.ones(1)
     far = depth * 1.01 * jnp.ones(1)
-    t, tid, inst_id, b1, b2, ext, _tp = closest_hit(scene, cfg, o, d, near, far)
+    t, tid, b1, b2, ext, _tp = closest_hit(scene, cfg, o, d, near, far)
     hit = tid[0] >= 0
     tri = jnp.maximum(tid[0], 0)
-    if scene.two_level:
-        inst = jnp.where(hit, inst_id[0], -1)
-        slot = scene.tri_slot[tri]
-        mat = jnp.where(hit,
-                        scene.inst_slot_map[jnp.maximum(inst, 0), slot], -1)
-    else:
-        inst = jnp.where(hit, scene.tri_inst[tri], -1)
-        mat = jnp.where(hit, scene.tri_mat[tri], -1)
+    inst = jnp.where(hit, scene.tri_inst[tri], -1)
+    mat = jnp.where(hit, scene.tri_mat[tri], -1)
     return inst, mat

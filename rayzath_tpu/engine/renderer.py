@@ -1,6 +1,6 @@
 """Renderer: per-camera progressive state + jitted render cycles.
 
-TPU-native analog of the reference render orchestration
+Analog of the reference render orchestration
 (cuda_engine_core.cu:32-128 + cuda_engine_renderer.cu:73-262). The reference's
 persistent render thread + fence gates become: XLA async dispatch (the jitted
 step returns immediately; we only block when fetching results) with donated
@@ -67,8 +67,8 @@ class Renderer:
         self.key = jax.random.key(seed)
         self.scene: Optional[DeviceScene] = None
         self._scene_version = -1
-        # version-keyed sub-build memo for compile_world: geometry/BVH,
-        # per-mesh cluster tables, atlases (see compile_world docstring)
+        # version-keyed sub-build memo for compile_world: geometry/BVH and
+        # atlases (see compile_world docstring)
         self._compile_cache: dict = {}
         self.views: Dict[int, CameraView] = {}
         self.time_table = TimeTable()
@@ -83,7 +83,6 @@ class Renderer:
             self.time_table.reset()
             self.scene = compile_world(self.world,
                                        leaf_size=self.config.bvh_leaf_size,
-                                       two_level=self.config.two_level,
                                        cache=self._compile_cache)
             self._scene_version = v
             # world change invalidates progressive accumulation (reference

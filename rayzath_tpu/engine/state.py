@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils import pytree as struct
 
 BIG = 3.402823466e38
 PATH_LIMIT = 255  # reference TracingState::sm_path_limit (cuda_camera.cuh:18)

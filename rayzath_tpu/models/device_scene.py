@@ -1,12 +1,12 @@
 """World -> device scene compilation (SoA JAX arrays).
 
-This is the TPU-native replacement for the reference's per-object device mirror
+This replaces the reference's per-object device mirror
 (RayZath/cuda_world.cu:28-121, cuda_object_container.cuh:42-150). Instead of
 pointer-linked device objects chunk-copied through pinned memory, the whole scene
 is flattened host-side (NumPy) into static-shape SoA arrays and uploaded as one
 pytree whenever the world's content version changes.
 
-TPU-first design decisions (vs the reference's two-level pointer BVH):
+Design decisions (vs the reference's two-level pointer BVH):
 
 * **World-space triangle soup.** Each instance's mesh is pre-transformed into
   world space (positions by TRS, normals by inverse-transpose — the semantics of
@@ -16,7 +16,7 @@ TPU-first design decisions (vs the reference's two-level pointer BVH):
   (for picking). This turns the reference's TLAS-over-instances +
   BLAS-per-mesh traversal (cuda_bvh.cuh:114-171 + cuda_instance.cuh:35-91) into
   ONE flattened BVH traversal with zero per-ray transforms and no material
-  indirection — pure SoA gathers, which is what the TPU VPU wants.
+  indirection. Instanced worlds are expanded into the soup as well.
 * **Texture atlases.** All color maps (textures + normal maps) are shelf-packed
   into one RGBA atlas; scalar maps (metalness/roughness/emission) into a scalar
   atlas. Per-map UV transform/filter/address-mode live in small tables, so one
@@ -34,12 +34,11 @@ from typing import Any, Optional
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
 
-from ..ops.bvh import build_bvh, compute_skip_links, triangle_aabbs, FlatBVH
-from ..ops.traverse import build_aabb_links
+from ..ops.traverse import bvh_tables
 from ..ops.intersect import triangle_frames
-from ..utils.hostmath import normalize as nrm, transform_matrices
+from ..utils import pytree as struct
+from ..utils.hostmath import normalize as nrm
 from .material import Material
 from .texture import TextureMap
 from .world import World
@@ -101,17 +100,12 @@ class DeviceScene:
     dir_emission: jnp.ndarray    # [D]
     dir_cos: jnp.ndarray         # [D]
 
-    # two-level (TLAS/BLAS) structure — present only when two_level is True
-    # (reference TLAS + per-mesh BLAS, cuda_bvh.cuh:114-171 +
-    # cuda_instance.cuh:35-264; shared object-space meshes, no duplication).
-    # In this mode tri_* hold OBJECT-space per-mesh geometry and the soup
-    # traversal fields above are inert dummies.
     # texture-alpha shadow filtering (reference cuda_instance.cuh:92-164 /
     # cuda_material.cuh:86-95: per-hit shadow factor = opacityColor *
     # textureOpacity — multiplicative, so the traversal kernels contribute the
     # constant material part and this dense "cutout" set (triangles whose
     # material has a color texture AND alpha < 1) contributes the texture
-    # part; see integrator.texture_shadow_factor). World space in both modes.
+    # part; see integrator.texture_shadow_factor). World space.
     # static 2x2 bilinear block-index tables (ops/texture.block_indices):
     # one row gather replaces the 4 corner gathers of a bilinear fetch
     col_blk_idx: Any = None    # [Hc*Wc, 4] i32
@@ -128,35 +122,10 @@ class DeviceScene:
     cut_map: Any = None       # [C] i32 texture map id
 
     # all per-hit shading attributes in ONE row, so resolving a hit costs a
-    # single [R]-row gather instead of ~12 (measured 3.4 ms per 512^2 gather
-    # from a 65k-row table — separate gathers dominated bounce_step).
+    # single [R]-row gather instead of ~12.
     # cols: v0 0:3 | e1 3:6 | e2 6:9 | n0 9:12 | n1 12:15 | n2 15:18 |
-    #       t0 18:20 | t1 20:22 | t2 22:24 | mat-or-slot 24 | inst 25
+    #       t0 18:20 | t1 20:22 | t2 22:24 | mat 24 | inst 25
     tri_pack: Any = None      # [F,32] f32
-
-    # flat cluster-traversal tables (ops/traverse_cluster.py): BVH leaves of
-    # ~128 triangles visited front-to-back as MXU-dense blocks — the fast
-    # soup path for scenes past the brute-force sweet spot (None when tiny)
-    cl_box: Any = None        # [8,Cp] lane-major cluster AABB table
-    cl_lw: Any = None         # [C,4,384] cluster projection frames
-    cl_order: Any = None      # [T] i32 cluster order -> soup index
-    cl_base: Any = None       # [C] i32 cluster triangle base (cluster order)
-    cl_count: Any = None      # [C] i32 cluster triangle count
-
-    # two-level unit tables (ops/traverse_cluster.py instanced variant):
-    # units = (instance x object-space mesh cluster) with world AABBs;
-    # cl_lw/cl_base/cl_count above hold the SHARED per-mesh cluster frames
-    # (object space) in this mode
-    ti_box: Any = None          # [8,Ip] lane-major instance world AABB table
-    ti_rows: Any = None         # [Ip,24] instance rows (AABB+inv+cl range)
-    cl_obox: Any = None         # [Cm,8] object-space cluster scalar rows
-    cl_slot: Any = None         # [Cm,ct] per-cluster triangle slot rows (f32)
-    inst_fwd: Any = None        # [I,12] object->world 3x4 (row-major)
-    inst_nrm: Any = None        # [I,9] normal matrix 3x3 (row-major)
-    inst_slot_map: Any = None   # [I,64] i32 material slot -> global mat id
-    tri_slot: Any = None        # [F] i32 mesh-local material slot
-    exp_tri: Any = None         # [K] i32 expanded (instance,tri) -> tri
-    exp_inst: Any = None        # [K] i32 expanded (instance,tri) -> instance
 
     # static metadata (not traced)
     n_triangles: int = struct.field(pytree_node=False, default=0)
@@ -171,13 +140,8 @@ class DeviceScene:
     map_kinds_used: tuple = struct.field(pytree_node=False,
                                          default=(False,) * 5)
     n_cutout: int = struct.field(pytree_node=False, default=0)
-    two_level: bool = struct.field(pytree_node=False, default=False)
-    # REAL cluster count (cluster tables are 128-bucket padded; padded rows
-    # are never-visited) — drives the ray-sort heuristic, not the shapes
-    n_clusters: int = struct.field(pytree_node=False, default=0)
-    # two-level: max REAL clusters of any instance's mesh (static; selects
-    # the instanced kernels' serial vs ranked inner sweep)
-    max_ncl: int = struct.field(pytree_node=False, default=0)
+    # BVH leaf count: drives the ray-sort heuristic (integrator), not shapes
+    n_leaves: int = struct.field(pytree_node=False, default=0)
 
 
 @struct.dataclass
@@ -309,42 +273,6 @@ def _geometry_key(world: World, leaf_size: int):
     return ("soup_geo", leaf_size, tuple(parts))
 
 
-def _mesh_object_arrays(mesh):
-    """Object-space SoA shading arrays for one mesh (original triangle order):
-    (v0, e1, e2, n0, n1, n2, t0, t1, t2, slot)."""
-    v = np.asarray(mesh.vertices, np.float32)
-    v0 = v[mesh.tri_v[:, 0]]
-    v1 = v[mesh.tri_v[:, 1]]
-    v2 = v[mesh.tri_v[:, 2]]
-    flat = nrm(np.cross(v1 - v0, v2 - v0)).astype(np.float32)
-    if len(mesh.normals):
-        on = nrm(np.asarray(mesh.normals, np.float32))
-
-        def vtx_normal(col):
-            idx = mesh.tri_n[:, col]
-            ok = idx >= 0
-            out = flat.copy()
-            out[ok] = on[idx[ok]]
-            return out
-        n0, n1, n2 = vtx_normal(0), vtx_normal(1), vtx_normal(2)
-    else:
-        n0 = n1 = n2 = flat
-    if len(mesh.texcrds):
-        def vtx_uv(col):
-            idx = mesh.tri_t[:, col]
-            ok = idx >= 0
-            out = np.zeros((len(idx), 2), np.float32)
-            out[ok] = np.asarray(mesh.texcrds, np.float32)[idx[ok]]
-            return out
-        t0, t1, t2 = vtx_uv(0), vtx_uv(1), vtx_uv(2)
-    else:
-        t0 = t1 = t2 = np.zeros((len(v0), 2), np.float32)
-    slot = np.clip(np.asarray(mesh.tri_mat, np.int64), 0, 63).astype(np.int32)
-    return v0, v1 - v0, v2 - v0, n0, n1, n2, t0, t1, t2, slot
-
-
-
-
 def _resolve_mat(mat_index: dict, mat, inst_name: str) -> int:
     """Material slot -> global id, warning on dangling references (a material
     never added to — or already destroyed from — the world renders with the
@@ -359,239 +287,16 @@ def _resolve_mat(mat_index: dict, mat, inst_name: str) -> int:
     return mid
 
 
-def _aabb_l2g(fwd, cmin, cmax):
-    """World AABBs of object-space boxes under a 3x4 transform, vectorized
-    over boxes ([C,3] each): per output axis, sum the per-input-axis
-    min/max of L_ij * {cmin_j, cmax_j} (exact for affine transforms)."""
-    lin = fwd[:, :3]
-    m1 = cmin[:, None, :] * lin[None, :, :]
-    m2 = cmax[:, None, :] * lin[None, :, :]
-    lo = np.minimum(m1, m2).sum(-1) + fwd[:, 3]
-    hi = np.maximum(m1, m2).sum(-1) + fwd[:, 3]
-    return lo.astype(np.float32), hi.astype(np.float32)
-
-
-def _mesh_cluster_block(m, cache: Optional[dict]):
-    """Object-space cluster tables + reordered shading arrays for one mesh,
-    memoized by (id, version): a transform-or-material edit re-uses every
-    untouched mesh's BLAS build (reference per-object re-mirror)."""
-    key = ("mesh_cl", id(m), getattr(m, "version", 0))
-    if cache is not None:
-        hit = cache.get(key)
-        if hit is not None:
-            return hit
-    from ..ops.traverse_cluster import (build_cluster_tables, B_MIN, B_MAX)
-    v0, e1, e2, n0, n1, n2, t0, t1, t2, slot = _mesh_object_arrays(m)
-    box_m, frames_m, order_m, base_m, count_m = build_cluster_tables(v0, e1, e2)
-    o = order_m
-    c = int((count_m > 0).sum())   # REAL clusters (tables are 128-padded)
-    value = dict(
-        arrays=tuple(a[o] for a in (v0, e1, e2, n0, n1, n2, t0, t1, t2)),
-        slot=slot[o], frames=frames_m, base=base_m, count=count_m,
-        cmin=box_m[B_MIN:B_MIN + 3, :c].T.copy(),
-        cmax=box_m[B_MAX:B_MAX + 3, :c].T.copy(),
-        obox6=box_m.T[:, :6].copy(),   # padded rows (inverted pad boxes)
-        ref=m)
-    if cache is not None:
-        for stale in [k2 for k2 in cache
-                      if isinstance(k2, tuple) and k2[0] == "mesh_cl"
-                      and k2[1] == id(m) and k2 != key]:
-            del cache[stale]
-        cache[key] = value
-    return value
-
-
-def _two_level_arrays(world: World, mat_index: dict,
-                      cache: Optional[dict] = None) -> dict:
-    """Two-level geometry: shared per-mesh object-space cluster tables +
-    per-instance transforms + flat unit table over (instance x cluster).
-    The non-duplicating counterpart of the world-space soup (reference
-    TLAS/BLAS semantics, cuda_bvh.cuh:114-171 + cuda_instance.cuh:167-264,
-    mapped onto the cluster traversal of ops/traverse_cluster.py)."""
-    from ..ops.traverse_cluster import (build_instance_tables,
-                                        cluster_slot_rows,
-                                        B_MIN, B_MAX, B_BASE, B_CNT)
-    meshes: list = []
-    mesh_pos: dict[int, int] = {}
-    valid: list[tuple[int, Any]] = []
-    for gi, inst in enumerate(world.instances):
-        m = inst.mesh
-        if m is None or m.triangle_count == 0:
-            continue
-        if id(m) not in mesh_pos:
-            mesh_pos[id(m)] = len(meshes)
-            meshes.append(m)
-        valid.append((gi, inst))
-
-    arrays = [[] for _ in range(9)]
-    slots = []
-    frames_parts, base_parts, count_parts, obox_parts = [], [], [], []
-    mesh_cmin, mesh_cmax = [], []        # REAL object-space boxes per mesh
-    mesh_slot_base: list[int] = []       # first global cluster slot per mesh
-    mesh_ncl: list[int] = []             # real cluster count per mesh
-    mesh_tri_base: list[int] = []
-    tri_base = 0
-    slot_base = 0
-    for m in meshes:
-        blk = _mesh_cluster_block(m, cache)
-        for lst, arr in zip(arrays, blk["arrays"]):
-            lst.append(arr)
-        slots.append(blk["slot"])
-        frames_parts.append(blk["frames"])
-        base_parts.append(blk["base"] + tri_base)
-        count_parts.append(blk["count"])
-        obox_parts.append(blk["obox6"])
-        mesh_cmin.append(blk["cmin"])
-        mesh_cmax.append(blk["cmax"])
-        mesh_slot_base.append(slot_base)
-        mesh_ncl.append(len(blk["cmin"]))
-        mesh_tri_base.append(tri_base)
-        slot_base += len(blk["base"])    # padded length: concat offsets
-        tri_base += len(blk["arrays"][0])
-
-    n_inst_total = len(world.instances)
-    inst_fwd = np.tile(np.eye(3, 4, dtype=np.float32).reshape(1, 12),
-                       (max(n_inst_total, 1), 1))
-    inst_nrm = np.tile(np.eye(3, dtype=np.float32).reshape(1, 9),
-                       (max(n_inst_total, 1), 1))
-    inst_slot_map = np.full((max(n_inst_total, 1), 64), DEFAULT_MATERIAL_ID,
-                            np.int32)
-
-    i_min, i_max, i_inv, i_cl0, i_ncl, i_gid = ([] for _ in range(6))
-    exp_tri_parts, exp_inst_parts = [], []
-    for gi, inst in valid:
-        mi = mesh_pos[id(inst.mesh)]
-        fwd, inv, nmat = transform_matrices(inst.effective_transform())
-        inst_fwd[gi] = fwd.reshape(12)
-        inst_nrm[gi] = nmat.reshape(9)
-        for s_, mat in enumerate(inst.materials[:64]):
-            if mat is not None:
-                inst_slot_map[gi, s_] = _resolve_mat(mat_index, mat,
-                                                     inst.name)
-        cmin, cmax = mesh_cmin[mi], mesh_cmax[mi]
-        # world AABB of the whole instance = union of its transformed
-        # cluster boxes (vectorized; exact for affine transforms)
-        wmin, wmax = _aabb_l2g(fwd, cmin, cmax)
-        i_min.append(wmin.min(0))
-        i_max.append(wmax.max(0))
-        i_inv.append(inv)
-        i_cl0.append(mesh_slot_base[mi])
-        i_ncl.append(len(cmin))
-        i_gid.append(gi)
-        ntri = inst.mesh.triangle_count
-        exp_tri_parts.append(np.arange(ntri, dtype=np.int32)
-                             + mesh_tri_base[mi])
-        exp_inst_parts.append(np.full(ntri, gi, np.int32))
-
-    if i_cl0:
-        ti_box, ti_rows = build_instance_tables(
-            np.asarray(i_min, np.float32), np.asarray(i_max, np.float32),
-            np.asarray(i_inv, np.float32), np.asarray(i_cl0, np.int32),
-            np.asarray(i_ncl, np.int32), np.asarray(i_gid, np.int32))
-        exp_tri = np.concatenate(exp_tri_parts)
-        exp_inst = np.concatenate(exp_inst_parts)
-        cl_lw = np.concatenate(frames_parts)
-        cl_base = np.concatenate(base_parts)
-        cl_count = np.concatenate(count_parts)
-        cl_obox = np.zeros((len(cl_base), 8), np.float32)
-        cl_obox[:, :6] = np.concatenate(obox_parts)
-        cl_obox[:, B_BASE] = cl_base.astype(np.float32)
-        cl_obox[:, B_CNT] = cl_count.astype(np.float32)
-    else:
-        ti_box, ti_rows = build_instance_tables(
-            np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
-            np.zeros((0, 3, 4), np.float32), np.zeros(0, np.int32),
-            np.zeros(0, np.int32), np.zeros(0, np.int32))
-        exp_tri = np.zeros(1, np.int32)
-        exp_inst = np.zeros(1, np.int32)
-        cl_lw = np.zeros((1, 4, 384), np.float32)
-        cl_base = np.zeros(1, np.int32)
-        cl_count = np.zeros(1, np.int32)
-        cl_obox = np.zeros((1, 8), np.float32)
-        cl_obox[:, B_MIN:B_MIN + 3] = 3e38
-        cl_obox[:, B_MAX:B_MAX + 3] = -3e38
-
-    if tri_base:
-        tri_v0, tri_e1, tri_e2, tri_n0, tri_n1, tri_n2, tri_t0, tri_t1, tri_t2 = (
-            np.concatenate(a) for a in arrays)
-        tri_slot = np.concatenate(slots)
-    else:
-        tri_v0 = tri_e1 = tri_e2 = np.zeros((0, 3), np.float32)
-        tri_n0 = tri_n1 = tri_n2 = np.zeros((0, 3), np.float32)
-        tri_t0 = tri_t1 = tri_t2 = np.zeros((0, 2), np.float32)
-        tri_slot = np.zeros(0, np.int32)
-
-    n_tri = tri_base
-    n_tri_pad = _bucket(n_tri)
-    geo = dict(
-        tri_v0=jnp.asarray(_pad_rows(tri_v0, n_tri_pad, 1e30)),
-        tri_e1=jnp.asarray(_pad_rows(tri_e1, n_tri_pad, 0.0)),
-        tri_e2=jnp.asarray(_pad_rows(tri_e2, n_tri_pad, 0.0)),
-        tri_n0=jnp.asarray(_pad_rows(tri_n0, n_tri_pad, 0.0)),
-        tri_n1=jnp.asarray(_pad_rows(tri_n1, n_tri_pad, 0.0)),
-        tri_n2=jnp.asarray(_pad_rows(tri_n2, n_tri_pad, 0.0)),
-        tri_t0=jnp.asarray(_pad_rows(tri_t0, n_tri_pad, 0.0)),
-        tri_t1=jnp.asarray(_pad_rows(tri_t1, n_tri_pad, 0.0)),
-        tri_t2=jnp.asarray(_pad_rows(tri_t2, n_tri_pad, 0.0)),
-        tri_slot=jnp.asarray(_pad_rows(tri_slot, n_tri_pad, 0)),
-        tri_pack=jnp.asarray(_pack_tri_rows(
-            _pad_rows(tri_v0, n_tri_pad, 1e30),
-            _pad_rows(tri_e1, n_tri_pad, 0.0),
-            _pad_rows(tri_e2, n_tri_pad, 0.0),
-            _pad_rows(tri_n0, n_tri_pad, 0.0),
-            _pad_rows(tri_n1, n_tri_pad, 0.0),
-            _pad_rows(tri_n2, n_tri_pad, 0.0),
-            _pad_rows(tri_t0, n_tri_pad, 0.0),
-            _pad_rows(tri_t1, n_tri_pad, 0.0),
-            _pad_rows(tri_t2, n_tri_pad, 0.0),
-            _pad_rows(tri_slot, n_tri_pad, 0),
-            np.full(n_tri_pad, -1, np.int32))),
-        # inert soup fields (the two-level path never reads them)
-        tri_mat=jnp.zeros(n_tri_pad, jnp.int32),
-        tri_inst=jnp.full(n_tri_pad, -1, jnp.int32),
-        tri_pw=jnp.zeros((3, 3), jnp.float32),
-        tri_pc=jnp.zeros(3, jnp.float32),
-        aabb_links=jnp.zeros((8, 8), jnp.float32),
-        node_begin=jnp.zeros(1, jnp.int32),
-        node_count=jnp.zeros(1, jnp.int32),
-        # two-level structure (shared mesh clusters + instanced units)
-        cl_lw=jnp.asarray(cl_lw),
-        cl_base=jnp.asarray(cl_base),
-        cl_count=jnp.asarray(cl_count),
-        ti_box=jnp.asarray(ti_box),
-        ti_rows=jnp.asarray(ti_rows),
-        cl_obox=jnp.asarray(cl_obox),
-        cl_slot=cluster_slot_rows(jnp.asarray(_pad_rows(tri_slot,
-                                                        n_tri_pad, 0)),
-                                  jnp.asarray(cl_base),
-                                  jnp.asarray(cl_count)),
-        inst_fwd=jnp.asarray(inst_fwd),
-        inst_nrm=jnp.asarray(inst_nrm),
-        inst_slot_map=jnp.asarray(inst_slot_map),
-        exp_tri=jnp.asarray(exp_tri),
-        exp_inst=jnp.asarray(exp_inst),
-        max_ncl=int(max(i_ncl)) if i_ncl else 0,
-    )
-    return geo, n_tri
-
-
 def compile_world(world: World, leaf_size: int = 8,
-                  two_level: Optional[bool] = None,
                   cache: Optional[dict] = None) -> DeviceScene:
     """Flatten the host world into a DeviceScene (see module docstring).
 
-    ``two_level`` selects the acceleration structure: False = world-space
-    triangle soup with one flattened BVH (fastest for small scenes, duplicates
-    instanced geometry); True = shared per-mesh segmented BLAS + TLAS over
-    instances (reference two-level semantics; scales past VMEM via streaming).
-    None (default) picks automatically: two-level when instancing would
-    duplicate substantially or the expanded soup would overflow the resident
-    packet table.
+    Every world compiles to the world-space triangle soup with one flattened
+    BVH; instanced meshes are expanded (one copy per instance).
 
     ``cache``: optional dict (owned by the caller, e.g. the Renderer) that
     memoizes the expensive version-keyed sub-builds — the world-space
-    geometry+BVH+cluster block, per-mesh object-space cluster tables, and
-    the texture atlases — so a materials-or-lights-only edit re-flattens
+    geometry+BVH block and the texture atlases — so a materials-or-lights-only edit re-flattens
     nothing but the cheap binding tables (reference incremental re-mirror,
     updatable.hpp:10-54 + cuda_object_container.cuh:42-150)."""
     # ---- material table ----
@@ -650,41 +355,6 @@ def compile_world(world: World, leaf_size: int = 8,
 
     map_kinds_used = tuple(bool((mat_maps[:, k] >= 0).any()) for k in range(5))
 
-    # ---- acceleration-structure mode ----
-    live = [i for i in world.instances
-            if i.mesh is not None and i.mesh.triangle_count > 0]
-    expanded = sum(i.mesh.triangle_count for i in live)
-    unique = sum(m.triangle_count
-                 for m in {id(i.mesh): i.mesh for i in live}.values())
-    if two_level is None:
-        # two-level only when instancing duplicates 2x+ a scene that is past
-        # the brute-force sweet spot (measured round 5: expanding
-        # instanced_field's 318k-triangle duplication into the streamed soup
-        # ran 0.55 vs the TLAS walk's 0.86 Mrays/s — the shared-BLAS mode
-        # wins once expansion crosses the resident-table scale)
-        two_level = expanded > 8192 and expanded >= 2 * unique
-
-    if two_level:
-        cut_fields = _cutout_fields(world, mat_index, mat_color, mat_maps)
-        n_cutout = cut_fields.pop("n_cutout")
-        geo, n_tri = _two_level_arrays(world, mat_index, cache)
-        return DeviceScene(
-            **geo,
-            **cut_fields, n_cutout=n_cutout,
-            mat_color=jnp.asarray(mat_color), mat_metalness=jnp.asarray(mat_metalness),
-            mat_roughness=jnp.asarray(mat_roughness), mat_emission=jnp.asarray(mat_emission),
-            mat_ior=jnp.asarray(mat_ior), mat_scattering=jnp.asarray(mat_scattering),
-            mat_maps=jnp.asarray(mat_maps),
-            **_atlas_fields(color_atlas, scalar_atlas, map_rect, map_flags, map_uv),
-            **_light_fields(world),
-            n_triangles=n_tri, n_materials=n_mat,
-            n_spot_lights=len(world.spot_lights),
-            n_direct_lights=len(world.direct_lights),
-            n_instances=len(world.instances),
-            has_maps=k > 0, map_kinds_used=map_kinds_used,
-            two_level=True,
-        )
-
     # ---- world-space triangle soup (geometry block cached by version) ----
     geo = _soup_geometry(world, leaf_size, cache)
     n_tri = geo["n_tri"]
@@ -713,7 +383,6 @@ def compile_world(world: World, leaf_size: int = 8,
     n_cutout = cut_fields.pop("n_cutout")
 
     return DeviceScene(
-        **geo["cl_fields"],
         **cut_fields, n_cutout=n_cutout,
         tri_v0=jnp.asarray(geo["tri_v0"]), tri_e1=jnp.asarray(geo["tri_e1"]),
         tri_e2=jnp.asarray(geo["tri_e2"]),
@@ -737,12 +406,13 @@ def compile_world(world: World, leaf_size: int = 8,
         n_direct_lights=len(world.direct_lights),
         n_instances=len(world.instances),
         has_maps=k > 0, map_kinds_used=map_kinds_used,
+        n_leaves=geo["n_leaves"],
     )
 
 
 def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
-    """Flatten instances into the world-space soup, build the BVH + cluster
-    tables, pad to bucketed shapes. Material-INDEPENDENT (slots are kept
+    """Flatten instances into the world-space soup, build the BVH, pad to
+    bucketed shapes. Material-INDEPENDENT (slots are kept
     mesh-local), so any materials-only edit reuses this block wholesale via
     ``cache`` — the reference analog of StateRegister-guarded re-mirroring
     (updatable.hpp:10-54): untouched geometry is neither re-transformed nor
@@ -810,20 +480,12 @@ def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
     n_tri = len(tri_v0)
 
     # ---- BVH over world-space triangles + reorder into leaf order ----
-    if n_tri:
-        pmin, pmax = triangle_aabbs(tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2)
-        bvh: FlatBVH = build_bvh(pmin, pmax, leaf_size=leaf_size)
-        o = bvh.order
-        tri_v0, tri_e1, tri_e2 = tri_v0[o], tri_e1[o], tri_e2[o]
-        tri_n0, tri_n1, tri_n2 = tri_n0[o], tri_n1[o], tri_n2[o]
-        tri_t0, tri_t1, tri_t2 = tri_t0[o], tri_t1[o], tri_t2[o]
-        slot_rows, inst_rows = slot_rows[o], inst_rows[o]
-    else:
-        bvh = build_bvh(np.zeros((0, 3)), np.zeros((0, 3)))
-    first8, skip8 = compute_skip_links(bvh.node_begin, bvh.node_count,
-                                       bvh.node_axis)
-    aabb_links = build_aabb_links(bvh.node_min, bvh.node_max, bvh.node_count,
-                                  first8, skip8)
+    o, aabb_links, node_begin, node_count = bvh_tables(
+        tri_v0, tri_e1, tri_e2, leaf_size, bucket=_bucket)
+    tri_v0, tri_e1, tri_e2 = tri_v0[o], tri_e1[o], tri_e2[o]
+    tri_n0, tri_n1, tri_n2 = tri_n0[o], tri_n1[o], tri_n2[o]
+    tri_t0, tri_t1, tri_t2 = tri_t0[o], tri_t1[o], tri_t2[o]
+    slot_rows, inst_rows = slot_rows[o], inst_rows[o]
 
     # pad to a bucketed size so small geometry edits keep shapes (and the
     # jit cache) stable; the padded tail never hits (v0 far, zero edges)
@@ -841,23 +503,6 @@ def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
     inst_rows = _pad_rows(inst_rows, n_tri_pad, -1)
     tri_pw, tri_pc = triangle_frames(tri_v0, tri_e1, tri_e2)
 
-    # cluster tables (the fast traversal past cfg.brute_force_threshold).
-    # Built for every non-empty scene: tiny scenes cost one ~8 KB cluster,
-    # and routing them through the cluster kernel avoids the dense XLA
-    # path's pathological compile (~470 s for the 36-tri Cornell).
-    cl_fields = {}
-    if n_tri > 0:
-        from ..ops.traverse_cluster import build_cluster_tables
-        cl_box, cl_lw, cl_order, cl_base, cl_count = build_cluster_tables(
-            tri_v0[:n_tri], tri_e1[:n_tri], tri_e2[:n_tri])
-        cl_fields = dict(
-            cl_box=jnp.asarray(cl_box), cl_lw=jnp.asarray(cl_lw),
-            # order padded to the triangle bucket so its shape is stable too
-            cl_order=jnp.asarray(_pad_rows(cl_order, n_tri_pad, 0)),
-            cl_base=jnp.asarray(cl_base),
-            cl_count=jnp.asarray(cl_count),
-            n_clusters=int((cl_count > 0).sum()))
-
     value = dict(
         n_tri=n_tri, n_tri_pad=n_tri_pad,
         tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2,
@@ -866,9 +511,9 @@ def _soup_geometry(world: World, leaf_size: int, cache: Optional[dict]):
         slot_rows=slot_rows, inst_rows=inst_rows,
         tri_pw=jnp.asarray(tri_pw), tri_pc=jnp.asarray(tri_pc),
         aabb_links=jnp.asarray(aabb_links),
-        node_begin=jnp.asarray(bvh.node_begin),
-        node_count=jnp.asarray(bvh.node_count),
-        cl_fields=cl_fields,
+        node_begin=jnp.asarray(node_begin),
+        node_count=jnp.asarray(node_count),
+        n_leaves=int((node_count > 0).sum()),
         refs=refs,  # pin object identity: id() reuse cannot false-hit
     )
     if cache is not None:
@@ -883,7 +528,9 @@ def _cutout_from_soup(geo: dict, tri_mat: np.ndarray, mat_color, mat_maps):
     """Texture-alpha shadow cutout set, derived from the (cached) flattened
     soup instead of re-transforming instances: a triangle is a cutout when
     its resolved material has a color texture AND base alpha < 1 (reference
-    cuda_material.cuh:86-95 semantics; see _cutout_fields)."""
+    cuda_material.cuh:86-95 semantics: when alpha = 1 the constant part
+    already blocks the ray, so only transparent textured materials need the
+    texture term)."""
     n_tri = geo["n_tri"]
     tm = tri_mat[:n_tri]
     sel = (mat_maps[tm, 0] >= 0) & (mat_color[tm, 3] < 1.0 - 1e-6)
@@ -902,63 +549,6 @@ def _cutout_from_soup(geo: dict, tri_mat: np.ndarray, mat_color, mat_maps):
         cut_t2=jnp.asarray(geo["tri_t2"][:n_tri][sel]),
         cut_map=jnp.asarray(mat_maps[tm[sel], 0].astype(np.int32)),
         n_cutout=int(sel.sum()))
-
-
-def _cutout_fields(world: World, mat_index, mat_color, mat_maps) -> dict:
-    """World-space "cutout" triangle set for texture-alpha shadow filtering.
-
-    A triangle is a cutout when its resolved material has a color texture AND
-    base alpha < 1 (reference semantics: the per-hit shadow factor
-    opacityColor(texcrd) = (rgb*tex_rgb, (1-alpha)*(1-tex_alpha)),
-    cuda_material.cuh:86-95 — when alpha = 1 the constant part already blocks
-    the ray, so only transparent textured materials need the texture term).
-    Returns projection frames + texcrds + map ids (+ n_cutout)."""
-    v0s, e1s, e2s, t0s, t1s, t2s, maps = [], [], [], [], [], [], []
-    for inst in world.instances:
-        mesh = inst.mesh
-        if mesh is None or mesh.triangle_count == 0:
-            continue
-        slot_table = np.full(64, DEFAULT_MATERIAL_ID, np.int32)
-        for s, mat in enumerate(inst.materials[:64]):
-            if mat is not None:
-                slot_table[s] = _resolve_mat(mat_index, mat, inst.name)
-        gmat = slot_table[np.clip(mesh.tri_mat, 0, 63)]
-        sel = (mat_maps[gmat, 0] >= 0) & (mat_color[gmat, 3] < 1.0 - 1e-6)
-        if not sel.any():
-            continue
-        tr = inst.effective_transform()
-        wv = tr.points_l2g(mesh.vertices).astype(np.float32)
-        tv = mesh.tri_v[sel]
-        v0 = wv[tv[:, 0]]
-        v0s.append(v0)
-        e1s.append(wv[tv[:, 1]] - v0)
-        e2s.append(wv[tv[:, 2]] - v0)
-        tt = mesh.tri_t[sel]
-        if len(mesh.texcrds):
-            uv = np.concatenate([mesh.texcrds.astype(np.float32),
-                                 np.zeros((1, 2), np.float32)])  # -1 -> (0,0)
-        else:
-            uv = np.zeros((1, 2), np.float32)
-            tt = np.full_like(tt, -1)
-        t0s.append(uv[tt[:, 0]])
-        t1s.append(uv[tt[:, 1]])
-        t2s.append(uv[tt[:, 2]])
-        maps.append(mat_maps[gmat[sel], 0])
-    if v0s:
-        v0 = np.concatenate(v0s)
-        e1 = np.concatenate(e1s)
-        e2 = np.concatenate(e2s)
-        pw, pc = triangle_frames(v0, e1, e2)
-        return dict(
-            cut_pw=jnp.asarray(pw), cut_pc=jnp.asarray(pc),
-            cut_v0=jnp.asarray(v0), cut_e1=jnp.asarray(e1),
-            cut_e2=jnp.asarray(e2),
-            cut_t0=jnp.asarray(np.concatenate(t0s)),
-            cut_t1=jnp.asarray(np.concatenate(t1s)),
-            cut_t2=jnp.asarray(np.concatenate(t2s)),
-            cut_map=jnp.asarray(np.concatenate(maps).astype(np.int32)),
-            n_cutout=len(v0))
-    return dict(n_cutout=0)
 
 
 def _atlas_fields(color_atlas, scalar_atlas, map_rect, map_flags, map_uv):

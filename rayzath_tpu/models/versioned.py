@@ -1,6 +1,6 @@
 """Dirty tracking for host scene objects.
 
-TPU-native analog of the reference ``Updatable``/``StateRegister`` dirty-bit
+Analog of the reference ``Updatable``/``StateRegister`` dirty-bit
 system (RayZath/updatable.hpp:10-54): instead of propagating dirty bits up an
 object graph, every host object carries a monotonically increasing ``version``,
 and ``World.content_version()`` folds all of them into one scene fingerprint

@@ -1,6 +1,6 @@
 """Host world: typed object containers + world/default materials.
 
-TPU-native equivalent of the reference ``Engine::World`` (RayZath/world.hpp:64-196):
+Equivalent of the reference ``Engine::World`` (RayZath/world.hpp:64-196):
 a container per object type (5 map kinds, Material, Mesh, Camera, SpotLight,
 DirectLight, Instance, Group) with create/destroy and name lookup, a global sky
 ("world") material, a default surface material, and procedural generate shortcuts.

@@ -2,7 +2,7 @@
 
 The reference keeps its host runtime — BVH builds (bvh_tree_node.hpp,
 component_container.hpp) and the scene loaders (loader.cpp) — in C++; this
-package is the TPU build's native equivalent. Components:
+package is this renderer's native equivalent. Components:
 
 * ``bvh_build``  — flattened-BVH builder (src/bvh.cpp), identical output
   layout/heuristics as the NumPy fallback in ops/bvh.py.

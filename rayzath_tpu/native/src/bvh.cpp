@@ -3,7 +3,7 @@
 // Host-side equivalent of the reference's C++ tree builds
 // (RayZath/bvh_tree_node.hpp:117-215 for instances,
 // RayZath/component_container.hpp:145-364 for triangles), emitting the
-// flattened SoA layout consumed directly by the TPU traversal
+// flattened SoA layout consumed directly by the BVH walk
 // (rayzath_tpu/ops/traverse.py):
 //
 //   * DFS node order with both children adjacent (inner node stores the index

@@ -1,4 +1,4 @@
-"""Host BVH build over triangles (NumPy), flattened to SoA arrays for the TPU.
+"""Host BVH build over triangles (NumPy), flattened to SoA arrays for the device.
 
 Build heuristics follow the reference triangle BVH
 (RayZath/component_container.hpp:145-364 and bvh_tree_node.hpp:117-215):
@@ -12,7 +12,7 @@ Flattened layout follows the reference device tree (cuda_bvh_tree_node.cuh:8-54 
 the DFS flatten in cuda_bvh.cuh:30-111): one node array where an inner node stores
 the index of its FIRST child (both children adjacent) plus its split axis, and a
 leaf stores a [begin, count) range into the reordered primitive array. ``count == 0``
-marks an inner node. The TPU traversal (ops/traverse.py) consumes these arrays
+marks an inner node. The BVH walk (ops/traverse.py) consumes these arrays
 directly; primitives are reordered into leaf order so leaf ranges are contiguous.
 
 A C++ builder with identical output lives in rayzath_tpu/native (compiled on
@@ -180,7 +180,7 @@ def compute_skip_links(node_begin: np.ndarray, node_count: np.ndarray,
     This turns the reference's per-thread index-stack walk
     (cuda_bvh.cuh:129-170, including its direction-sign child ordering) into a
     scatter-free iteration: per step a ray holds ONE node index and either
-    descends (``first``) or skips (``skip``) — the state layout the TPU wants.
+    descends (``first``) or skips (``skip``) — one node index of state per ray.
     """
     out = native.bvh_skip_links(node_begin, node_count, node_axis)
     if out is not None:

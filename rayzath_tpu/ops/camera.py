@@ -13,6 +13,13 @@ import jax.numpy as jnp
 from .vec import normalize, TWO_PI
 
 
+def rotate_rows(v, rot):
+    """``v @ rot.T`` for [R,3] rows, as elementwise f32 multiply-adds: no
+    matmul, so no TF32 (which would move rays by ~1e-3 relative and flip
+    hits at triangle edges) and the same result for any batch shape."""
+    return v[:, 0:1] * rot[:, 0] + v[:, 1:2] * rot[:, 1] + v[:, 2:3] * rot[:, 2]
+
+
 def pixel_grid(width: int, height: int, row0=0):
     """Flat pixel coordinates [R,2] (x, y) in row-major order, R = W*height.
 
@@ -50,8 +57,8 @@ def generate_rays(cam, pixels, u):
                         jnp.zeros_like(ap_angle)], axis=1)
     direction = focal_point - origin
 
-    origin = origin @ cam.rot.T + cam.position
-    direction = normalize(direction @ cam.rot.T)
+    origin = rotate_rows(origin, cam.rot) + cam.position
+    direction = normalize(rotate_rows(direction, cam.rot))
     return origin, direction
 
 
@@ -66,7 +73,7 @@ def simple_ray(cam, pixels):
     dy = ((pixels[:, 1] + 0.5) / h - 0.5) * (-tana / aspect)
     direction = jnp.stack([dx, dy, jnp.ones_like(dx)], axis=1)
     origin = jnp.broadcast_to(cam.position, direction.shape)
-    direction = normalize(direction @ cam.rot.T)
+    direction = normalize(rotate_rows(direction, cam.rot))
     return origin, direction
 
 

@@ -1,4 +1,4 @@
-"""Batched ray/triangle intersection (Moller-Trumbore) on TPU.
+"""Batched ray/triangle intersection (Moller-Trumbore).
 
 Numerical semantics follow the reference device intersector
 (RayZath/cuda_render_parts.cuh:1023-1083): the determinant is nudged by +1e-7
@@ -8,9 +8,9 @@ t in (near, far); ``external`` (front-face) is det > 0.
 Two strategies are provided (the renderer picks statically by scene size):
 
 * ``brute_force_closest`` / ``brute_force_shadow`` — all-pairs rays x triangle
-  tiles via ``lax.scan``. Fully vectorized VPU work with zero divergence; on
-  small scenes (Cornell box) this is faster than any tree on TPU.
-* the BVH wavefront traversal lives in ops/traverse.py for large scenes.
+  tiles via ``lax.scan``. Fully vectorized work with zero divergence; the
+  test oracle, and the path for scenes under ``brute_force_threshold``.
+* the per-ray BVH walk lives in ops/traverse.py.
 
 ``refine_hit`` recomputes (t, b1, b2) differentiably from a resolved triangle id,
 which is what path-replay backprop differentiates through (the discrete hit
@@ -30,7 +30,7 @@ BIG = 3.402823466e38
 
 
 # ---------------------------------------------------------------------------
-# unit-triangle projection method (the MXU-native intersector)
+# unit-triangle projection method (the matmul intersector)
 # ---------------------------------------------------------------------------
 #
 # Per triangle, precompute M = inv([e1 e2 n]) (n = e1 x e2) and c = -M v0.
@@ -39,9 +39,9 @@ BIG = 3.402823466e38
 #     o' = M o + c,   d' = M d
 #     t  = -o'_z / d'_z,   b1 = o'_x + t d'_x,   b2 = o'_y + t d'_y
 # so ALL per-(ray, triangle) quantities come from two matmuls
-# [R,3] @ [3, 3F] — pure MXU work — plus fused elementwise on [R,F] tiles.
+# [R,3] @ [3, 3F] plus fused elementwise work on [R,F] tiles.
 # This replaces the cross-product Moller-Trumbore broadcast (which
-# materializes [R,F,3] intermediates the TPU hates); hit (t, b1, b2) are
+# materializes [R,F,3] intermediates); hit (t, b1, b2) are
 # re-derived differentiably afterwards by ``refine_hit``, which keeps the
 # reference's exact MT numerics (cuda_render_parts.cuh:1023-1083) on the
 # gathered winning triangle.
@@ -73,6 +73,24 @@ def triangle_frames(v0: "np.ndarray", e1, e2):
     return w.astype(np.float32), cc.astype(np.float32)
 
 
+def triangle_frames_jnp(v0, e1, e2):
+    """Traceable (differentiable) twin of :func:`triangle_frames`, used by
+    the shadow traversal's replay backward pass."""
+    n = jnp.cross(e1, e2)
+    b = jnp.stack([e1, e2, n], axis=-1)                 # [F,3,3] columns
+    det = jnp.linalg.det(b)
+    ok = jnp.abs(det) > 1e-30
+    b_safe = jnp.where(ok[:, None, None], b, jnp.eye(3, dtype=b.dtype))
+    m = jnp.linalg.inv(b_safe)                          # rows: b1, b2, z
+    c = -jnp.einsum("fij,fj->fi", m, v0,
+                    precision=jax.lax.Precision.HIGHEST)
+    m = jnp.where(ok[:, None, None], m, 0.0)
+    c = jnp.where(ok[:, None], c, jnp.asarray([-1.0, -1.0, 1.0]))
+    w = jnp.concatenate([m[:, 0, :], m[:, 1, :], m[:, 2, :]], axis=0).T
+    cc = jnp.concatenate([c[:, 0], c[:, 1], c[:, 2]], axis=0)
+    return w, cc
+
+
 def _project_terms(origin, direction, w, c):
     """Matmul projection of rays onto triangle frames.
 
@@ -80,8 +98,8 @@ def _project_terms(origin, direction, w, c):
     each [R, F].
     """
     f = w.shape[1] // 3
-    # HIGHEST keeps f32 matmul precision on TPU (default bf16 inputs shatter
-    # ray geometry into speckle)
+    # HIGHEST keeps the products in f32 (bf16 or TF32 inputs shatter ray
+    # geometry into speckle)
     hi = jax.lax.Precision.HIGHEST
     ol = jnp.matmul(origin, w, precision=hi) + c    # [R, 3F]
     dl = jnp.matmul(direction, w, precision=hi)     # [R, 3F]

@@ -39,7 +39,7 @@ def primary_hits(scene, cam, cfg):
     R = o.shape[0]
     near = jnp.full(R, cam.near_far[0])
     far = jnp.full(R, cam.near_far[1])
-    t, tid, _inst, b1, b2, ext, _tp = closest_hit(scene, cfg, o, d, near, far)
+    t, tid, b1, b2, ext, _tp = closest_hit(scene, cfg, o, d, near, far)
     t = jnp.where(tid >= 0, t, far)
     space = o + d * t[:, None]
     return t.reshape(H, W), space.reshape(H, W, 3)
@@ -60,7 +60,7 @@ def reproject_accum(space_buf, prev_cam, prev_accum, prev_depth, temporal_blend)
 
     # transform to previous local camera space (transformBackward: columns of
     # rot are the camera axes, so local = (p - pos) @ rot)
-    local = (p - prev_cam.position) @ prev_cam.rot
+    local = cam_ops.rotate_rows(p - prev_cam.position, prev_cam.rot.T)
     lz = local[:, 2]
     in_front = lz > 0.0
 

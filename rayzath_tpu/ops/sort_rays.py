@@ -1,12 +1,11 @@
-"""Ray-coherence sorting for packet traversal.
+"""Ray-coherence sorting before traversal.
 
-The cluster kernels (ops/traverse_cluster.py) share one cull + visit loop
-per 1024-ray block: the block visits the union of the clusters its rays
-need. Primary rays in an image tile share a narrow frustum, so
-the union is small — but after a bounce the wavefront is incoherent and a
-block's union approaches the whole tree, collapsing throughput (the reference
-CUDA walk is per-thread, cuda_bvh.cuh:114-171, so it never pays this cost; on
-TPU the fix is to restore coherence instead).
+After a bounce the wavefront is incoherent: neighbouring rays start far
+apart and point in different directions, so a block of rays walks very
+different parts of the BVH. Sorting restores coherence; the traversal results
+are scattered back through the inverse permutation, so callers see row-major
+ray order throughout. Whether sorting pays on the GPU's per-ray walk has not
+been measured.
 
 ``sort_perm`` orders rays by a 32-bit coherence key:
 
@@ -15,20 +14,16 @@ TPU the fix is to restore coherence instead).
     [22:15] direction bits        (4+4 bits of the two minor |d| ratios)
     [14:0]  fine origin Morton    (5 bits/axis)
 
-The ORDER of the fields is the design (measured with tools/visitstats.py
-on mesh_heavy's bounce wavefront): bounce origins are already coherent in
-pixel order, so a fine-Morton-major key changes nothing (every block still
-needs every cluster: 312 gated visits/block); a coarse-region-major key
-whose cells hold several blocks, SPLIT BY DIRECTION inside each cell,
-gives blocks a sign-definite direction box and drops gated visits to ~54.
-Octant-major (the previous key) fails the other way: blocks collect one
-octant from all over the image and the origin box spans the scene.
-Origins are normalized by the batch's own min/max — no scene bounds needed,
-and shadow rays (origins on visible surfaces) bin just as well as bounce rays.
-For camera rays (all origins equal) the key degrades to direction bits, which
-still groups blocks into narrow cones. Sorting is a standard XLA sort (no
-data-dependent shapes); the traversal results are scattered back through the
-inverse permutation, so callers see row-major ray order throughout.
+The ORDER of the fields is the design: bounce origins are already coherent
+in pixel order, so a fine-Morton-major key changes little; a
+coarse-region-major key whose cells hold several blocks, SPLIT BY DIRECTION
+inside each cell, gives blocks a sign-definite direction box. Octant-major
+fails the other way: blocks collect one octant from all over the image and
+the origin box spans the scene. Origins are normalized by the batch's own
+min/max — no scene bounds needed, and shadow rays (origins on visible
+surfaces) bin just as well as bounce rays. For camera rays (all origins
+equal) the key degrades to direction bits, which still groups blocks into
+narrow cones. Sorting is a standard XLA sort (no data-dependent shapes).
 """
 from __future__ import annotations
 
@@ -92,11 +87,9 @@ def sort_payload(origin, direction, extras):
     """Coherence-sort rays carrying every per-ray column THROUGH the radix
     sort instead of gathering after an argsort.
 
-    Measured on-chip (tools/r5probe.py): the argsort + row-gather + scatter
-    machinery of :func:`sort_perm` costs ~14 ms per 512^2 call — an order of
-    magnitude over the traversal it accelerates on small scenes — because
-    XLA row gathers run ~3.4 ms each at this size. ``lax.sort`` with payload
-    operands moves the data WITH the keys in one radix pass.
+    ``lax.sort`` with payload operands moves the data WITH the keys in one
+    sort, instead of the argsort + row-gather + scatter of
+    :func:`sort_perm`.
 
     Returns (o_s, d_s, extras_s, idx_s) where ``idx_s`` is the original row
     index of each sorted row; undo with :func:`unsort_payload`.

@@ -80,14 +80,11 @@ def fetch(color_atlas, scalar_atlas, map_rect, map_flags, map_uv, map_id, uv,
 
     ``atlas``: static hint (0=color, 1=scalar, None=mixed batch). Most call
     sites know their map kind statically — the hint halves the gather count.
-    Cost shape (measured on-chip, round 5): EVERY [R]-row gather from an
-    atlas costs ~1.5-3.5 ms at 512^2 inside the fused bounce program, so
-    this function gathers exactly 4 corners from exactly one atlas when it
-    can — the point-filter result is derived from the bilinear corners
+    Every [R]-row gather from an atlas is a full pass over the wavefront,
+    so this function gathers exactly 4 corners from exactly one atlas when
+    it can — the point-filter result is derived from the bilinear corners
     (floor(f) == floor(f-0.5) + [frac >= 0.5], exactly), not re-gathered.
-    The previous form (separate point gathers x both atlases, 10 gathers
-    per call) made textured scenes fetch-bound at ~35 ms per map kind per
-    bounce."""
+    What each gather costs on the GPU has not been measured."""
     mid = jnp.maximum(map_id, 0)
     u, v = _transform_uv(uv, map_uv, mid)
     flags = map_flags[mid]

@@ -1,73 +1,75 @@
-"""Stackless BVH traversal on TPU: skip-links, two gathers per step.
+"""Stackless BVH traversal: the per-ray skip-link walk and its entry points.
 
-TPU-native replacement for the reference's per-thread index-stack walk
-(RayZath/cuda_bvh.cuh:114-232, cuda_instance.cuh:35-164). The design is driven
-by measured facts about the hardware's wavefront gather unit:
+The reference walks a two-level BVH with one CUDA thread per ray and a
+32-deep index stack (RayZath/cuda_bvh.cuh:114-232, cuda_instance.cuh:35-164).
+Here every world is one flattened BVH over the world-space triangle soup, and
+the walk (one ray per GPU lane, ops/traverse_gpu.py) is stackless:
+``aabb_links`` holds, per ray-direction octant and node, the node box, its
+near child (``first``, -1 for leaves) and its subtree skip link (host side,
+ops/bvh.py ``compute_skip_links`` — the same direction-sign child ordering
+the reference derives per step, cuda_bvh.cuh:149-158). Per step a ray either
+descends (first) or skips.
 
-* A wavefront gather of R rows costs ~constant regardless of payload width
-  (row gathers up to 128 lanes; transposed gathers up to 8 sublanes), and K
-  separate gathers cost K times as much. Gather COUNT is the only currency.
-* Vector math is free next to gathers — but only when operands stay
-  lane-aligned. Extracting single columns from a gathered [R, W] row is a
-  cross-lane relayout that costs a sizable fraction of a gather, so per-step
-  data must be consumed either as [8, R] sublane fields (free to slice) or as
-  lane-parallel [R, L] groups (all L leaf triangles computed at once).
-
-Hence each traversal step issues exactly TWO gathers:
-
-1. ``aabb_links[:, octant*N + node]`` -> [8, R]: the node's AABB (6 fields),
-   its near child (``first``, -1 for leaves) and its subtree skip link, all
-   precomputed per ray-direction octant (host side, ops/bvh.py
-   ``compute_skip_links`` — the same direction-sign child ordering the
-   reference derives per step, cuda_bvh.cuh:149-158). Stackless: per step a
-   ray either descends (first) or skips.
-2. ``leaf_table[node]`` -> [R, G*L]: the node's full leaf block, field-major
-   (G field groups x L triangles in lanes): v0/e1/e2 columns, the triangle
-   ids, and (for shadow rays) per-triangle opacity. Moller-Trumbore runs
-   lane-parallel over all L triangles; the winner is picked with one lane
-   reduce. Inner nodes carry degenerate padding (id = -1), so no begin/count
-   bookkeeping exists in the loop at all.
-
-The leaf table is assembled INSIDE jit from the scene arrays (a cheap N-row
-gather), so gradients to triangle geometry and material opacity flow through
-the replayed traversal; the AABB/link table is discrete structure (gradients
-stop at hit decisions by construction, path-replay style) and is built
-host-side. Hit (t, b1, b2) are re-derived differentiably by
-ops/intersect.refine_hit.
+:func:`closest` and :func:`shadow` are the traversal entry points of the
+integrator. Hit decisions are discrete, so the closest-hit walk takes
+``stop_gradient`` of its inputs and (t, b1, b2) are re-derived differentiably
+by ops/intersect.refine_tri; the shadow walk's transmission gets a custom
+VJP whose backward pass replays the dense, differentiable
+``project_shadow`` over every triangle (path replay: the transmission
+product is order-independent).
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import NamedTuple
 
 import jax
-import jax.numpy as jnp
+import numpy as np
 
-from .intersect import DET_EPS, BIG
-
-NEG = -1.0e30
-
-
-class Hit(NamedTuple):
-    t: jnp.ndarray        # [R]
-    tri_id: jnp.ndarray   # [R] i32, -1 = miss
+from .bvh import build_bvh, compute_skip_links, triangle_aabbs
+from .intersect import project_shadow, triangle_frames_jnp
+from .traverse_gpu import gpu_closest, gpu_shadow
 
 
-def _inv1(d):
-    return 1.0 / jnp.where(jnp.abs(d) < 1e-12,
-                           jnp.where(d < 0, -1e-12, 1e-12), d)
+def bvh_tables(v0, e1, e2, leaf_size: int = 8, bucket=None):
+    """Host-side BVH over triangles [F,3] (v0 + edges) in the walk's layout.
 
-
-def _octant(dx, dy, dz):
-    return ((dx < 0).astype(jnp.int32)
-            | ((dy < 0).astype(jnp.int32) << 1)
-            | ((dz < 0).astype(jnp.int32) << 2))
+    Returns (order, aabb_links, node_begin, node_count): ``order`` [F]
+    permutes the triangles into leaf order (the tables index the permuted
+    arrays). An empty soup gets one empty leaf, so every walk ends at once.
+    ``bucket(n) -> m >= n`` pads the node tables to ``m`` never-visited
+    nodes, so small edits keep the device shapes (and the jit cache)."""
+    if len(v0) == 0:
+        order = np.zeros(0, np.int32)
+        node_min = node_max = np.zeros((1, 3), np.float32)
+        begin, count = np.zeros(1, np.int32), np.zeros(1, np.int32)
+        first8, skip8 = np.zeros((8, 1), np.int32), np.ones((8, 1), np.int32)
+        leaf = np.ones(1, np.int32)
+    else:
+        pmin, pmax = triangle_aabbs(v0, v0 + e1, v0 + e2)
+        bvh = build_bvh(pmin, pmax, leaf_size=leaf_size)
+        order, node_min, node_max = bvh.order, bvh.node_min, bvh.node_max
+        begin, count = bvh.node_begin, bvh.node_count
+        first8, skip8 = compute_skip_links(begin, count, bvh.node_axis)
+        leaf = count
+    n = len(begin)
+    m = bucket(n) if bucket is not None else n
+    if m > n:
+        # the padded nodes are never reached: "finished" moves from n to m
+        skip8 = np.where(skip8 == n, m, skip8)
+        pad = m - n
+        node_min = np.concatenate([node_min, np.zeros((pad, 3), np.float32)])
+        node_max = np.concatenate([node_max, np.zeros((pad, 3), np.float32)])
+        first8 = np.pad(first8, ((0, 0), (0, pad)))
+        skip8 = np.pad(skip8, ((0, 0), (0, pad)), constant_values=m)
+        begin, count, leaf = (np.pad(a, (0, pad)) for a in (begin, count,
+                                                            leaf))
+    links = build_aabb_links(node_min, node_max, leaf, first8, skip8)
+    return order, links, begin, count
 
 
 def build_aabb_links(node_min, node_max, node_count, first8, skip8):
     """Host-side [8, 8N] traversal table: per octant o and node n, column
     o*N + n holds (min xyz, max xyz, first, skip); first = -1 marks a leaf."""
-    import numpy as np
     n = len(node_count)
     leaf = node_count > 0
     out = np.empty((8, 8 * n), np.float32)
@@ -80,265 +82,55 @@ def build_aabb_links(node_min, node_max, node_count, first8, skip8):
     return out
 
 
-def _leaf_table(node_begin, node_count, leaf_size: int, columns):
-    """In-jit [N, G*L] field-major leaf blocks.
-
-    columns: list of [F] per-triangle scalar arrays (field groups). A group of
-    triangle ids is appended automatically (pad/id = -1; inner nodes are all
-    padding). Gradients flow from ``columns`` into the table.
-    """
-    n = node_begin.shape[0]
-    k = jnp.arange(leaf_size, dtype=jnp.int32)
-    tid = node_begin[:, None] + k[None, :]                      # [N, L]
-    valid = (node_count[:, None] > 0) & (k[None, :] < node_count[:, None])
-    n_tri = columns[0].shape[0]
-    tid_c = jnp.clip(tid, 0, n_tri - 1)
-    parts = [jnp.where(valid, col[tid_c], 0.0) for col in columns]
-    parts.append(jnp.where(valid, tid_c, -1).astype(jnp.float32))
-    table = jnp.concatenate(parts, axis=1)                      # [N, G*L]
-    # barrier: without it XLA may re-assemble the table inside the loop body
-    return jax.lax.optimization_barrier(table)
+def _on_platform(kernel, *args):
+    # lowered per platform: the compiled Triton kernel for CUDA, the same
+    # kernel through the Pallas interpreter for the CPU (the tests, the
+    # headless "CPU" engine); no other platform lowers
+    return jax.lax.platform_dependent(
+        *args, **{p: partial(kernel, interpret=p == "cpu")
+                  for p in ("cpu", "cuda")})
 
 
-def _split3(a):
-    return a[:, 0], a[:, 1], a[:, 2]
+def closest(origin, direction, near, far, aabb_links, node_begin, node_count,
+            tri_v0, tri_e1, tri_e2):
+    """Closest hit per ray in (near, far): (t [R], tri_id [R] i32, -1 = miss).
+    Discrete: no gradient flows through it."""
+    args = jax.lax.stop_gradient((origin, direction, near, far, aabb_links,
+                                  node_begin, node_count, tri_v0, tri_e1,
+                                  tri_e2))
+    return _on_platform(gpu_closest, *args)
 
 
-def _compact_slots(active, cap: int):
-    """Indices of (up to ``cap``) active rays, via cumsum scatter (no sort).
-
-    Requires ``sum(active) <= cap``. Unused slots fall back to ray 0 — a
-    benign duplicate: the straggler phase recomputes ray 0's result and the
-    scatter-back writes the same value twice.
-    """
-    r = active.shape[0]
-    pos = jnp.cumsum(active.astype(jnp.int32)) - 1
-    store = jnp.where(active, pos, cap)                      # inactive -> dump
-    slots = jnp.zeros(cap + 1, jnp.int32).at[store].set(
-        jnp.arange(r, dtype=jnp.int32), mode="drop")
-    return slots[:cap]
+@jax.custom_vjp
+def shadow(origin, direction, dist, aabb_links, node_begin, node_count,
+           tri_v0, tri_e1, tri_e2, op_rgb, op_a):
+    """Transmission-filtered visibility (reference anyIntersection,
+    cuda_bvh.cuh:172-232): the product of per-triangle opacity colours over
+    every hit in (0, dist). Returns (rgb [R,3], a [R]); a ray stops once
+    alpha < 1e-4 (reference early-out, cuda_instance.cuh:110)."""
+    return _on_platform(gpu_shadow, origin, direction, dist, aabb_links,
+                        node_begin, node_count, tri_v0, tri_e1, tri_e2,
+                        op_rgb, op_a)
 
 
-def _mt_lanes(g2, L, ox, oy, oz, dx, dy, dz):
-    """Lane-parallel Moller-Trumbore over the L leaf triangles (reference
-    numerics, cuda_render_parts.cuh:1023-1083). Inputs are [R,1] ray columns
-    against [R,L] field groups; returns ([R,L] t, b1, b2, det, bary_ok, ids).
-    """
-    def grp(f):
-        return g2[:, f * L:(f + 1) * L]
-    v0x, v0y, v0z = grp(0), grp(1), grp(2)
-    e1x, e1y, e1z = grp(3), grp(4), grp(5)
-    e2x, e2y, e2z = grp(6), grp(7), grp(8)
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    det = det + jnp.where(jnp.abs(det) < DET_EPS, DET_EPS, 0.0)
-    inv_det = 1.0 / det
-    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-    b1 = (tvx * px + tvy * py + tvz * pz) * inv_det
-    qx = tvy * e1z - tvz * e1y
-    qy = tvz * e1x - tvx * e1z
-    qz = tvx * e1y - tvy * e1x
-    b2 = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-    bary_ok = (b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
-    return t, b1, b2, det, bary_ok
+def _shadow_fwd(origin, direction, dist, aabb_links, node_begin, node_count,
+                tri_v0, tri_e1, tri_e2, op_rgb, op_a):
+    out = shadow(origin, direction, dist, aabb_links, node_begin, node_count,
+                 tri_v0, tri_e1, tri_e2, op_rgb, op_a)
+    return out, (origin, direction, dist, tri_v0, tri_e1, tri_e2, op_rgb, op_a)
 
 
-@partial(jax.jit, static_argnames=("leaf_size",))
-def bvh_closest(origin, direction, near, far,
-                aabb_links, node_begin, node_count,
-                tri_v0, tri_e1, tri_e2,
-                leaf_size: int = 8) -> Hit:
-    """Closest-hit skip-link traversal for rays [R,3] over the flattened BVH.
+def _shadow_bwd(res, g):
+    # dense replay: where the alpha early-out has not saturated the product,
+    # this is the exact gradient; beyond it the light term is ~0 anyway
+    def replay(origin, direction, dist, tri_v0, tri_e1, tri_e2, op_rgb, op_a):
+        pw, pc = triangle_frames_jnp(tri_v0, tri_e1, tri_e2)
+        return project_shadow(origin, direction, dist, pw, pc, op_rgb, op_a,
+                              chunk=min(512, tri_v0.shape[0]))
 
-    aabb_links: [8, 8N] host-built table (build_aabb_links).
-    """
-    R = origin.shape[0]
-    N = node_begin.shape[0]
-    L = leaf_size
-    cols = (list(_split3(tri_v0)) + list(_split3(tri_e1))
-            + list(_split3(tri_e2)))
-    table = _leaf_table(node_begin, node_count, L, cols)
-    ID = 9  # id group index
-
-    def phase(origin, direction, near, far, node0, t0, id0, stop_count: int):
-        """Run the traversal loop until <= stop_count rays remain active."""
-        ox, oy, oz = _split3(origin)
-        dx, dy, dz = _split3(direction)
-        ix, iy, iz = _inv1(dx), _inv1(dy), _inv1(dz)
-        oct_off = _octant(dx, dy, dz) * N
-        ox1, oy1, oz1 = ox[:, None], oy[:, None], oz[:, None]
-        dx1, dy1, dz1 = dx[:, None], dy[:, None], dz[:, None]
-
-        def cond(state):
-            it, node, *_ = state
-            n_active = jnp.sum((node < N).astype(jnp.int32))
-            return jnp.logical_and(n_active > stop_count, it < N + 1)
-
-        def body(state):
-            it, node, best_t, best_id = state
-            active = node < N
-            nid = jnp.minimum(node, N - 1)
-
-            g1 = aabb_links[:, oct_off + nid]          # [8, R]
-            tx1 = (g1[0] - ox) * ix
-            ty1 = (g1[1] - oy) * iy
-            tz1 = (g1[2] - oz) * iz
-            tx2 = (g1[3] - ox) * ix
-            ty2 = (g1[4] - oy) * iy
-            tz2 = (g1[5] - oz) * iz
-            tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx1, tx2),
-                                           jnp.minimum(ty1, ty2)),
-                               jnp.minimum(tz1, tz2))
-            tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx1, tx2),
-                                           jnp.maximum(ty1, ty2)),
-                               jnp.maximum(tz1, tz2))
-            hit_box = (active & (tmax >= near) & (tmin <= tmax)
-                       & (tmin <= jnp.minimum(far, best_t)))
-            first = g1[6]
-            skip = g1[7]
-            is_leaf = first < 0.0
-
-            # ---- leaf: lane-parallel MT over the whole block ----
-            g2 = table[nid]                            # [R, 10L]
-            ids = g2[:, ID * L:(ID + 1) * L]
-            t, b1, b2, det, bary_ok = _mt_lanes(g2, L, ox1, oy1, oz1,
-                                                dx1, dy1, dz1)
-            valid = ((hit_box & is_leaf)[:, None] & bary_ok & (ids >= 0.0)
-                     & (t > near[:, None]) & (t < best_t[:, None]))
-            t_cand = jnp.where(valid, t, BIG)
-            leaf_t = jnp.min(t_cand, axis=1)
-            win = t_cand <= leaf_t[:, None]
-            leaf_id = jnp.max(jnp.where(win & valid, ids, -1.0), axis=1)
-            better = leaf_id >= 0.0
-            best_t = jnp.where(better, leaf_t, best_t)
-            best_id = jnp.where(better, leaf_id.astype(jnp.int32), best_id)
-
-            # ---- step ----
-            nxt = jnp.where(hit_box & ~is_leaf, first, skip).astype(jnp.int32)
-            node = jnp.where(active, nxt, node)
-            return it + 1, node, best_t, best_id
-
-        state0 = (jnp.int32(0), node0, t0, id0)
-        _, node, t, tid = jax.lax.while_loop(cond, body, state0)
-        return node, t, tid
-
-    # compaction ladder: lockstep pays per-iteration cost for ALL rays, so
-    # once <= 1/4 remain active the stragglers are compacted onto
-    # quarter-size arrays and the tail continues there, recursively
-    def run(origin, direction, near, far, node, t, tid):
-        r = origin.shape[0]
-        cap = r // 4
-        if cap < 64:
-            _, t, tid = phase(origin, direction, near, far, node, t, tid, 0)
-            return t, tid
-        node, t, tid = phase(origin, direction, near, far, node, t, tid, cap)
-        slots = _compact_slots(node < N, cap)
-        t2, tid2 = run(origin[slots], direction[slots], near[slots],
-                       far[slots], node[slots], t[slots], tid[slots])
-        return t.at[slots].set(t2), tid.at[slots].set(tid2)
-
-    t, tid = run(origin, direction, near, far, jnp.zeros(R, jnp.int32),
-                 jnp.minimum(far, BIG), jnp.full(R, -1, jnp.int32))
-    return Hit(t=t, tri_id=tid)
+    _, vjp = jax.vjp(replay, *res)
+    d_o, d_d, d_dist, d_v0, d_e1, d_e2, d_rgb, d_a = vjp(g)
+    return (d_o, d_d, d_dist, None, None, None, d_v0, d_e1, d_e2, d_rgb, d_a)
 
 
-@partial(jax.jit, static_argnames=("leaf_size",))
-def bvh_shadow(origin, direction, dist,
-               aabb_links, node_begin, node_count,
-               tri_v0, tri_e1, tri_e2, tri_opacity_rgb, tri_opacity_a,
-               leaf_size: int = 8):
-    """Transmission-accumulating shadow traversal (reference
-    cuda_bvh.cuh:172-232).
-
-    Returns (mask_rgb [R,3], mask_a [R]); rays finish early once alpha < 1e-4
-    (reference early-out, cuda_instance.cuh:110). Per-triangle opacity rides
-    as extra field groups in the leaf block so the step stays at two gathers.
-    """
-    R = origin.shape[0]
-    N = node_begin.shape[0]
-    L = leaf_size
-    cols = (list(_split3(tri_v0)) + list(_split3(tri_e1))
-            + list(_split3(tri_e2)) + list(_split3(tri_opacity_rgb))
-            + [tri_opacity_a])
-    table = _leaf_table(node_begin, node_count, L, cols)
-    OPR, ID = 9, 13
-
-    def phase(origin, direction, dist, node0, m0, stop_count: int):
-        ox, oy, oz = _split3(origin)
-        dx, dy, dz = _split3(direction)
-        ix, iy, iz = _inv1(dx), _inv1(dy), _inv1(dz)
-        oct_off = _octant(dx, dy, dz) * N
-        ox1, oy1, oz1 = ox[:, None], oy[:, None], oz[:, None]
-        dx1, dy1, dz1 = dx[:, None], dy[:, None], dz[:, None]
-
-        def cond(state):
-            it, node, *_ = state
-            n_active = jnp.sum((node < N).astype(jnp.int32))
-            return jnp.logical_and(n_active > stop_count, it < N + 1)
-
-        def body(state):
-            it, node, mr, mg, mb, ma = state
-            active = (node < N) & (ma >= 1e-4)
-            nid = jnp.minimum(node, N - 1)
-
-            g1 = aabb_links[:, oct_off + nid]
-            tx1 = (g1[0] - ox) * ix
-            ty1 = (g1[1] - oy) * iy
-            tz1 = (g1[2] - oz) * iz
-            tx2 = (g1[3] - ox) * ix
-            ty2 = (g1[4] - oy) * iy
-            tz2 = (g1[5] - oz) * iz
-            tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx1, tx2),
-                                           jnp.minimum(ty1, ty2)),
-                               jnp.minimum(tz1, tz2))
-            tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx1, tx2),
-                                           jnp.maximum(ty1, ty2)),
-                               jnp.maximum(tz1, tz2))
-            hit_box = active & (tmax >= 0.0) & (tmin <= tmax) & (tmin <= dist)
-            first = g1[6]
-            skip = g1[7]
-            is_leaf = first < 0.0
-
-            g2 = table[nid]
-            ids = g2[:, ID * L:(ID + 1) * L]
-            t, b1, b2, det, bary_ok = _mt_lanes(g2, L, ox1, oy1, oz1,
-                                                dx1, dy1, dz1)
-            valid = ((hit_box & is_leaf)[:, None] & bary_ok & (ids >= 0.0)
-                     & (t > 0.0) & (t < dist[:, None]))
-
-            def grp(f):
-                return g2[:, f * L:(f + 1) * L]
-            mr = mr * jnp.prod(jnp.where(valid, grp(OPR + 0), 1.0), axis=1)
-            mg = mg * jnp.prod(jnp.where(valid, grp(OPR + 1), 1.0), axis=1)
-            mb = mb * jnp.prod(jnp.where(valid, grp(OPR + 2), 1.0), axis=1)
-            ma = ma * jnp.prod(jnp.where(valid, grp(OPR + 3), 1.0), axis=1)
-
-            nxt = jnp.where(hit_box & ~is_leaf, first, skip).astype(jnp.int32)
-            nxt = jnp.where(ma < 1e-4, N, nxt)   # opaque: finished
-            node = jnp.where(node < N, nxt, node)
-            return it + 1, node, mr, mg, mb, ma
-
-        mr0, mg0, mb0, ma0 = m0
-        state0 = (jnp.int32(0), node0, mr0, mg0, mb0, ma0)
-        _, node, mr, mg, mb, ma = jax.lax.while_loop(cond, body, state0)
-        return node, (mr, mg, mb, ma)
-
-    def run(origin, direction, dist, node, m):
-        r = origin.shape[0]
-        cap = r // 4
-        if cap < 64:
-            _, m = phase(origin, direction, dist, node, m, 0)
-            return m
-        node, m = phase(origin, direction, dist, node, m, cap)
-        slots = _compact_slots(node < N, cap)
-        m2 = run(origin[slots], direction[slots], dist[slots], node[slots],
-                 tuple(x[slots] for x in m))
-        return tuple(x.at[slots].set(y) for x, y in zip(m, m2))
-
-    ones = jnp.ones(R)
-    mr, mg, mb, ma = run(origin, direction, dist, jnp.zeros(R, jnp.int32),
-                         (ones, ones, ones, ones))
-    return jnp.stack([mr, mg, mb], axis=1), ma
+shadow.defvjp(_shadow_fwd, _shadow_bwd)

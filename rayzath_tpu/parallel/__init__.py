@@ -2,10 +2,10 @@
 
 The reference is single-node single-GPU (cudaSetDevice(0),
 RayZath/cuda_engine_core.cu:17); its only parallelism is one CUDA thread per
-pixel. The TPU-native scaling axis (SURVEY.md §2.7) is the ray/pixel dimension:
-shard the wavefront across a 1-D device mesh over ICI, replicate the scene
-(BVH + triangles + materials + atlases fit HBM), and reduce only sample
-counters / gradients with psum.
+pixel. The scaling axis (SURVEY.md §2.7) is the ray/pixel dimension:
+shard the wavefront across a 1-D device mesh, replicate the scene
+(BVH + triangles + materials + atlases fit device memory), and reduce only
+sample counters / gradients with psum.
 """
 from .mesh import (make_mesh, RAYS_AXIS, shard_state, replicate_scene,
                    sharded_render_steps)

@@ -1,18 +1,18 @@
-"""Multi-host (multi-process) runtime: pod-slice rendering over ICI + DCN.
+"""Multi-host (multi-process) runtime: rendering over several hosts' devices.
 
 The reference is single-node single-GPU (``cudaSetDevice(0)``,
-RayZath/cuda_engine_parts.cu:151); SURVEY §2.7 names the TPU-native
+RayZath/cuda_engine_parts.cu:151); SURVEY §2.7 names the
 equivalent to build: ``jax.distributed.initialize()`` per host, a device
 mesh over all hosts' chips, per-host ownership of image-row bands, scene
-replicated, with DCN crossed only for init, checkpointing, and result
-gather. This module provides exactly that on top of parallel/mesh.py's
+replicated, with the network between hosts crossed only for init,
+checkpointing, and result gather. This module provides exactly that on top of parallel/mesh.py's
 row-sharded integrator:
 
 * :func:`init_distributed` — one call per process before any jax op; no-op
   for single-process runs so the same program works everywhere.
 * :func:`global_mesh` — 1-D 'rays' mesh over every chip of every host
   (process-major order, so contiguous row bands land on one host's chips
-  and no render-time traffic crosses DCN).
+  and no render-time traffic crosses hosts).
 * :func:`init_state_distributed` — builds the sharded RenderState without
   materializing the full image on any single host (each process fills only
   its local row band via ``jax.make_array_from_callback``).
@@ -20,7 +20,7 @@ row-sharded integrator:
   work is embarrassingly parallel (scene replicated), so the only
   communication is the caller's result fetch.
 * :func:`gather_image` — allgather of the accumulation buffer across hosts
-  (the one deliberate DCN crossing), returning the full [H, W, 4] array in
+  (the one deliberate crossing between hosts), returning the full [H, W, 4] array in
   every process.
 
 Process-count-invariance contract: the row-keyed RNG
@@ -31,8 +31,8 @@ OS processes on the CPU backend (the "fake cluster" the reference never
 had, SURVEY §4).
 
 Measurement recipe (BASELINE metric 3, >= 80% rays/s at N >= 2 hosts): on a
-real pod slice, run ``python -m rayzath_tpu.parallel.distributed --bench``
-on every host under the pod launcher; it initializes, renders the headline
+real cluster, run ``python -m rayzath_tpu.parallel.distributed --bench``
+on every host with the coordinator address, process count and id given; it initializes, renders the headline
 config over the global mesh, and process 0 prints rays/s. Efficiency =
 rays/s(N hosts) / (N x rays/s(1 host)); per-bounce work has no cross-chip
 collective, so the expected loss is only result-fetch amortization.
@@ -57,7 +57,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize the multi-process JAX runtime (idempotent).
 
     With no arguments, reads the standard JAX env/cluster auto-detection
-    (TPU pods need nothing); explicit arguments support manual clusters and
+    where the platform provides it; explicit arguments support clusters and
     the CPU fake-cluster tests. Returns the process index. Single-process
     runs (no coordinator, no env) skip initialization entirely.
     """
@@ -82,7 +82,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
 def global_mesh():
     """1-D 'rays' mesh over every device of every process (process-major:
     jax.devices() orders by process, so contiguous row bands are host-local
-    and rendering never crosses DCN)."""
+    and rendering never crosses hosts)."""
     return make_mesh(jax.devices())
 
 
@@ -121,7 +121,7 @@ def render_steps_distributed(scene, cam, cfg, state: RenderState, key,
     """Advance the render ``n_steps`` bounce passes over the global mesh.
 
     The scene/camera pytrees are replicated to every chip (each host uploads
-    its own copy — no DCN transfer of scene data); the wavefront state is
+    its own copy — no transfer of scene data between hosts); the wavefront state is
     row-sharded. Results are bit-identical to a single-device render."""
     mesh = mesh or global_mesh()
     return sharded_render_steps(scene, cam, cfg, state, key, n_steps, mesh)
@@ -129,7 +129,7 @@ def render_steps_distributed(scene, cam, cfg, state: RenderState, key,
 
 def gather_image(state: RenderState) -> np.ndarray:
     """Full [H, W, 4] accumulation buffer in every process (the deliberate
-    DCN crossing; everything before this is host-local)."""
+    crossing between hosts; everything before this is host-local)."""
     from jax.experimental import multihost_utils
     if jax.process_count() == 1:
         return np.asarray(state.accum)
@@ -138,7 +138,7 @@ def gather_image(state: RenderState) -> np.ndarray:
 
 
 def _bench(argv=None) -> None:
-    """Pod-slice scaling probe: run on every host under the pod launcher."""
+    """Multi-host scaling probe: run on every host of the cluster."""
     import argparse
     import time
     from .. import scenes

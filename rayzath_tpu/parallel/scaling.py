@@ -4,14 +4,14 @@ efficiency at N >= 2).
 ``measure_scaling`` renders the same progressive workload with the wavefront
 sharded over 1, 2, ..., N devices of a 1-D ray mesh (scene replicated — the
 sharding design of parallel/mesh.py) and reports rays/s + efficiency relative
-to linear scaling from the 1-device run. On a real pod slice this measures ICI
-scaling; under ``--xla_force_host_platform_device_count`` it validates the
+to linear scaling from the 1-device run. On the GPUs of one host this measures
+scaling over their interconnect; under ``--xla_force_host_platform_device_count`` it validates the
 harness and the sharded program (virtual CPU devices share the same cores, so
 efficiency numbers there are not meaningful).
 
-Cross-HOST (DCN) scaling is measured by parallel/distributed.py: run
+Cross-HOST scaling is measured by parallel/distributed.py: run
 ``python -m rayzath_tpu.parallel.distributed --bench`` on every host of the
-slice (its module docstring documents the recipe); the multi-process code
+cluster (its module docstring documents the recipe); the multi-process code
 path itself is CI-tested by tests/test_multihost.py with two real OS
 processes on CPU.
 """

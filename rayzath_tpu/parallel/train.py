@@ -4,10 +4,11 @@ The new-capability analog of "training" for a renderer (SURVEY.md §7.1): render
 with the current scene parameters, compare against a target image, and descend
 on material properties / texture atlases. Gradients flow through the wavefront
 integrator (discrete hit ids are stop-gradient; hit coordinates are re-derived
-differentiably — engine/integrator.py). Under a sharded wavefront
-(parallel.mesh), GSPMD inserts the cross-chip psum for the parameter gradients
-automatically: per-ray adjoints reduce over the 'rays' axis into the
-replicated parameter tables.
+differentiably — engine/integrator.py). Given a device mesh, the step runs
+under ``shard_map`` like parallel.mesh's render: each device renders its
+block of image rows (the BVH walk's kernels included) with the scene
+replicated, and the loss and parameter gradients are summed over the 'rays'
+axis.
 """
 from __future__ import annotations
 
@@ -16,14 +17,16 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..engine.integrator import render_steps_preserve
+from jax.sharding import PartitionSpec as P
+
+from ..engine.integrator import _render_steps_impl, render_steps_preserve
 from ..engine.state import RenderState
 
 # Scene leaves that receive gradients — every entry is finite-difference
 # validated in tests/test_gradients.py (material color/emission directly;
 # roughness/metalness/spot/direct emission via test_grad_fd_lights_and_
 # surface_params; atlas texels via test_grad_fd_atlas_texel; shadow-opacity
-# alpha through the cluster-shadow custom_vjp at 64^2 via
+# alpha through the shadow walk's custom_vjp at 64^2 via
 # test_grad_fd_through_cluster_shadow_at_64px).
 #
 # ``mat_ior`` and ``mat_scattering`` carry dedicated estimators for their
@@ -51,23 +54,61 @@ def image_loss(scene, cam, cfg, state: RenderState, key, target, n_steps: int):
     return jnp.mean(jnp.square(img - target)), st
 
 
-@partial(jax.jit, static_argnames=("cfg", "n_steps"))
+@partial(jax.jit, static_argnames=("cfg", "n_steps", "mesh"))
 def training_step(scene, cam, cfg, state: RenderState, key, target,
-                  lr, n_steps: int):
+                  lr, n_steps: int, mesh=None):
     """One SGD step on the differentiable scene parameters.
 
     Returns (updated scene, post-render state, scalar loss). ``state`` should
     be a fresh init_state each step (paths restart) unless continuing a
-    progressive estimate on purpose.
+    progressive estimate on purpose. With ``mesh`` (1-D, axis 'rays'), state
+    and target are split into row blocks over its devices (height divisible
+    by the device count).
     """
     params = {k: getattr(scene, k) for k in DIFF_PARAMS}
+    if mesh is None:
+        def loss_fn(p):
+            return image_loss(scene.replace(**p), cam, cfg, state, key,
+                              target, n_steps)
 
-    def loss_fn(p):
-        return image_loss(scene.replace(**p), cam, cfg, state, key, target, n_steps)
-
-    (loss, st), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        (loss, st), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    else:
+        loss, st, grads = _sharded_loss_and_grads(scene, cam, cfg, state, key,
+                                                  target, n_steps, mesh,
+                                                  params)
     new_params = {k: _project(k, params[k] - lr * grads[k]) for k in params}
     return scene.replace(**new_params), st, loss
+
+
+def _sharded_loss_and_grads(scene, cam, cfg, state, key, target, n_steps,
+                            mesh, params):
+    from .mesh import RAYS_AXIS, _state_pspecs
+    n_pix = state.height * state.width * 3
+    h_local = state.height // mesh.devices.size
+    state_spec = _state_pspecs(state)
+    rep = jax.tree.map(lambda _: P(), (scene, cam, params))
+
+    def local(scene, cam, params, st, key, target):
+        # rows [row0, row0 + h_local): the row-keyed RNG makes them the
+        # same rays as in a single-device step
+        row0 = jax.lax.axis_index(RAYS_AXIS) * h_local
+        st = st.replace(height=h_local)
+
+        def loss_fn(p):
+            out = _render_steps_impl(scene.replace(**p), cam, cfg, st, key,
+                                     n_steps, row0=row0)
+            img = out.accum[..., :3] / jnp.maximum(out.accum[..., 3:4], 1.0)
+            return jnp.sum(jnp.square(img - target)) / n_pix, out
+
+        (part, out), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        total = jax.lax.psum((part, g), RAYS_AXIS)
+        return total[0], out.replace(height=state.height), total[1]
+
+    return jax.shard_map(
+        local, mesh=mesh,
+        in_specs=(rep[0], rep[1], rep[2], state_spec, P(), P(RAYS_AXIS)),
+        out_specs=(P(), state_spec, rep[2]), check_vma=False,
+    )(scene, cam, params, state, key, target)
 
 
 _UNIT_PARAMS = ("mat_color", "mat_metalness", "mat_roughness", "color_atlas")

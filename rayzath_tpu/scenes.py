@@ -226,10 +226,8 @@ def textured_room(width: int = 512, height: int = 512) -> World:
 
 def mesh_heavy(width: int = 512, height: int = 512,
                resolution: int = 256) -> World:
-    """One big displaced mesh (~2*resolution^2 triangles; 131k at the default)
-    on a ground plane. Nothing here fits a VMEM-resident packet table — this
-    is the honest BVH-scaling benchmark: traversal must stream the segmented
-    cluster frames from HBM (ops/traverse_cluster.py)."""
+    """One big displaced mesh (~resolution^2 triangles; 65k at the default)
+    on a ground plane: the BVH-scaling scene, deep and uneven subtrees."""
     w = World()
     ground = w.generate_material("paper")
     body = w.create_material("body", color=(0.7, 0.55, 0.4, 1.0),
@@ -264,10 +262,9 @@ def mesh_heavy(width: int = 512, height: int = 512,
 
 def instanced_field(width: int = 512, height: int = 512,
                     n: int = 12, resolution: int = 48) -> World:
-    """n*n instances of ONE mesh (~2*resolution^2 tris each; 663k expanded
-    triangles at the defaults, one 4.6k-tri BLAS in memory). Exercises the
-    TLAS-over-instances path (reference cuda_bvh.cuh:114-171) at a scale the
-    world-space soup could not hold."""
+    """n*n instances of ONE mesh (~318k triangles once the instances are
+    expanded into the world-space soup at the defaults). The reference walks
+    a TLAS over the instances instead (cuda_bvh.cuh:114-171)."""
     w = World()
     ground = w.generate_material("paper")
     mats = [w.create_material(f"m{i}", color=c, roughness=rg, ior=1.45)
@@ -314,10 +311,33 @@ def cornell_box_nee(width: int = 512, height: int = 512) -> World:
     return w
 
 
+def lit_blocker(width: int = 16, height: int = 16) -> World:
+    """Spot + direct light over a glossy floor and a semi-transparent blocker:
+    shadow rays cross real geometry, so d(image)/d(blocker alpha) flows
+    through the shadow walk. The gradient checks' scene (not benchmarked)."""
+    w = World()
+    floor_m = w.create_material("floor", color=(0.6, 0.6, 0.6, 1.0),
+                                roughness=0.3, metalness=0.2)
+    blocker_m = w.create_material("blocker", color=(0.8, 0.3, 0.2, 0.55))
+    plane = w.generate_mesh("plane", sides=4, width=6.0, height=6.0)
+    w.create_instance(name="floor", mesh=plane, materials=[floor_m])
+    w.create_instance(name="blocker", mesh=w.generate_mesh("cube"),
+                      materials=[blocker_m],
+                      transform=Transform(position=(0, 1.0, 0),
+                                          scale=(0.8, 0.2, 0.8)))
+    w.create_spot_light(position=(0.0, 3.0, 0.0), direction=(0, -1, 0),
+                        size=0.4, emission=30.0, beam_angle=1.2)
+    w.create_direct_light(direction=(-0.4, -1.0, 0.2), emission=5.0,
+                          angular_size=0.1)
+    cam = w.create_camera("cam", position=(0, 2.0, -4.0),
+                          resolution=(width, height), aperture=0.01,
+                          exposure_time=1.0)
+    cam.look_at((0, 0.3, 0))
+    return w
+
+
 def mesh_massive(width: int = 512, height: int = 512) -> World:
-    """~500k-triangle displaced blob: the streamed-HBM scale proof (VERDICT
-    r4 item 6). Cluster tables run to ~5.5k clusters — far past
-    RESIDENT_CLUSTERS — so every visit DMAs its frames from HBM."""
+    """~500k-triangle displaced blob: mesh_heavy at a larger tessellation."""
     return mesh_heavy(width, height, resolution=708)
 
 

@@ -1,4 +1,4 @@
-"""Typed exceptions + assert helpers (TPU equivalent of RayZath/rzexception.hpp)."""
+"""Typed exceptions + assert helpers (equivalent of RayZath/rzexception.hpp)."""
 from __future__ import annotations
 
 

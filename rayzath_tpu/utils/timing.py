@@ -1,6 +1,6 @@
 """Per-stage timing with EMA smoothing.
 
-TPU-native equivalent of the reference ``TimeTable`` (RayZath/engine_parts.hpp:50-74):
+Equivalent of the reference ``TimeTable`` (RayZath/engine_parts.hpp:50-74):
 named stage entries with exponentially smoothed durations (avg factor 0.05) plus a
 separately tracked wait time, surfaced as a debug string.
 """

@@ -2,8 +2,8 @@
 
 The reference ships a GLFW/Vulkan/ImGui editor (Application/viewport.cpp:
 431-465: live viewport, orbit/pan/zoom, click-to-pick, stats overlay). A
-native window stack makes no sense for a TPU host you reach over SSH, so the
-TPU-native equivalent is a tiny zero-dependency web viewer: a background
+native window stack makes no sense for a GPU host you reach over SSH, so the
+equivalent here is a tiny zero-dependency web viewer: a background
 thread renders progressively through the normal :class:`Renderer` while an
 ``http.server`` serves
 

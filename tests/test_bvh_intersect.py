@@ -4,7 +4,8 @@ import jax.numpy as jnp
 from rayzath_tpu.ops.bvh import (build_bvh, compute_skip_links, triangle_aabbs,
                                  validate_bvh)
 from rayzath_tpu.ops.intersect import brute_force_closest, brute_force_shadow, refine_hit
-from rayzath_tpu.ops.traverse import bvh_closest, bvh_shadow, build_aabb_links
+from rayzath_tpu.ops import traverse
+from rayzath_tpu.ops.traverse import build_aabb_links
 from rayzath_tpu.models.mesh import generate_uv_sphere, generate_cube
 
 
@@ -52,19 +53,19 @@ def test_traversal_matches_brute_force():
                                        bvh.node_axis)
     links = build_aabb_links(bvh.node_min, bvh.node_max, bvh.node_count,
                              first8, skip8)
-    hit = bvh_closest(
+    t_t, id_t = traverse.closest(
         jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(near), jnp.asarray(far),
         jnp.asarray(links),
         jnp.asarray(bvh.node_begin), jnp.asarray(bvh.node_count),
-        jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2), leaf_size=8)
+        jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2))
 
     miss_b = np.asarray(id_b) < 0
-    miss_t = np.asarray(hit.tri_id) < 0
+    miss_t = np.asarray(id_t) < 0
     np.testing.assert_array_equal(miss_b, miss_t)
     m = ~miss_b
-    np.testing.assert_allclose(np.asarray(hit.t)[m], np.asarray(t_b)[m], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(t_t)[m], np.asarray(t_b)[m], rtol=1e-4, atol=1e-5)
     # same triangle except exact t-ties
-    same = np.asarray(hit.tri_id)[m] == np.asarray(id_b)[m]
+    same = np.asarray(id_t)[m] == np.asarray(id_b)[m]
     assert same.mean() > 0.99
 
 
@@ -89,12 +90,12 @@ def test_shadow_matches_brute_force():
                                        bvh.node_axis)
     links = build_aabb_links(bvh.node_min, bvh.node_max, bvh.node_count,
                              first8, skip8)
-    rgb_t, a_t = bvh_shadow(
+    rgb_t, a_t = traverse.shadow(
         jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(dist),
         jnp.asarray(links),
         jnp.asarray(bvh.node_begin), jnp.asarray(bvh.node_count),
         jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2),
-        jnp.asarray(orgb), jnp.asarray(oa), leaf_size=8)
+        jnp.asarray(orgb), jnp.asarray(oa))
 
     # early-out rays may stop once alpha < 1e-4; compare where brute alpha >= 1e-4
     keep = np.asarray(a_b) >= 1e-4

@@ -1,18 +1,18 @@
-"""Parity tests: flat cluster traversal vs the dense brute-force oracle.
+"""Parity tests: the BVH walk's entry points vs the dense brute-force oracle.
 
-Mirrors tests/test_packet_traversal.py for the fourth-generation kernel
-(ops/traverse_cluster.py): closest-hit and transmission shadow results must
-match the all-pairs reference exactly (same t-window semantics), plus a
-finite-difference check through the shadow custom_vjp.
+``ops.traverse.closest`` / ``shadow`` are what the integrator calls (on the
+CPU they run the walk's Pallas kernels through the interpreter): closest-hit
+and transmission shadow results must match the all-pairs reference (same
+t-window semantics), plus a finite-difference check through the shadow
+custom_vjp.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from rayzath_tpu.ops import traverse
 from rayzath_tpu.ops.intersect import (brute_force_closest, brute_force_shadow)
-from rayzath_tpu.ops.traverse_cluster import (build_cluster_tables,
-                                              cluster_closest, cluster_shadow)
 
 
 def make_soup(n, seed=0, spread=4.0, size=0.35):
@@ -31,18 +31,24 @@ def make_rays(r, seed=1, spread=6.0):
     return jnp.asarray(o), jnp.asarray(d)
 
 
+def bvh_soup(v0, e1, e2):
+    """Triangles permuted into leaf order + the walk's tables, as device
+    arrays: (v0, e1, e2, (aabb_links, node_begin, node_count))."""
+    order, links, begin, count = traverse.bvh_tables(v0, e1, e2)
+    tris = tuple(jnp.asarray(a[order]) for a in (v0, e1, e2))
+    return tris + ((jnp.asarray(links), jnp.asarray(begin),
+                    jnp.asarray(count)),)
+
+
 @pytest.mark.parametrize("n_tri", [40, 700])
 def test_closest_parity(n_tri):
-    v0, e1, e2 = make_soup(n_tri)
-    box, frames, order, base, count = build_cluster_tables(v0, e1, e2)
+    v0, e1, e2, tables = bvh_soup(*make_soup(n_tri))
     o, d = make_rays(512)
     near = jnp.zeros(512)
     far = jnp.full(512, 1e30)
-    t, tid = cluster_closest(o, d, near, far, jnp.asarray(box),
-                             jnp.asarray(frames), jnp.asarray(order))
+    t, tid = traverse.closest(o, d, near, far, *tables, v0, e1, e2)
     t_ref, tid_ref, _, _, _ = brute_force_closest(
-        o, d, near, far, jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2),
-        chunk=min(512, n_tri))
+        o, d, near, far, v0, e1, e2, chunk=min(512, n_tri))
     hit = np.asarray(tid_ref) >= 0
     assert (np.asarray(tid) >= 0).tolist() == hit.tolist()
     assert np.allclose(np.asarray(t)[hit], np.asarray(t_ref)[hit],
@@ -53,17 +59,14 @@ def test_closest_parity(n_tri):
 
 
 def test_closest_near_far_window():
-    v0, e1, e2 = make_soup(300, seed=3)
-    box, frames, order, base, count = build_cluster_tables(v0, e1, e2)
+    v0, e1, e2, tables = bvh_soup(*make_soup(300, seed=3))
     o, d = make_rays(256, seed=4)
     rng = np.random.default_rng(5)
     near = jnp.asarray(rng.uniform(0.0, 2.0, 256).astype(np.float32))
     far = jnp.asarray(rng.uniform(3.0, 9.0, 256).astype(np.float32))
-    t, tid = cluster_closest(o, d, near, far, jnp.asarray(box),
-                             jnp.asarray(frames), jnp.asarray(order))
+    t, tid = traverse.closest(o, d, near, far, *tables, v0, e1, e2)
     t_ref, tid_ref, _, _, _ = brute_force_closest(
-        o, d, near, far, jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2),
-        chunk=300)
+        o, d, near, far, v0, e1, e2, chunk=300)
     hit = np.asarray(tid_ref) >= 0
     assert (np.asarray(tid) >= 0).tolist() == hit.tolist()
     assert np.allclose(np.asarray(t)[hit], np.asarray(t_ref)[hit],
@@ -72,21 +75,16 @@ def test_closest_near_far_window():
 
 @pytest.mark.parametrize("n_tri", [40, 700])
 def test_shadow_parity(n_tri):
-    v0, e1, e2 = make_soup(n_tri, seed=7)
-    box, frames, order, base, count = build_cluster_tables(v0, e1, e2)
+    v0, e1, e2, tables = bvh_soup(*make_soup(n_tri, seed=7))
     rng = np.random.default_rng(8)
     op_rgb = jnp.asarray(rng.uniform(0.3, 1.0, (n_tri, 3)).astype(np.float32))
     op_a = jnp.asarray(rng.uniform(0.4, 1.0, n_tri).astype(np.float32))
     o, d = make_rays(256, seed=9)
     dist = jnp.full(256, 8.0)
-    rgb, a = cluster_shadow(o, d, dist, jnp.asarray(box), jnp.asarray(frames),
-                            jnp.asarray(order), jnp.asarray(base),
-                            jnp.asarray(count), jnp.asarray(v0),
-                            jnp.asarray(e1), jnp.asarray(e2), op_rgb, op_a)
+    rgb, a = traverse.shadow(o, d, dist, *tables, v0, e1, e2, op_rgb, op_a)
     rgb_ref, a_ref = brute_force_shadow(
-        o, d, dist, jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2),
-        op_rgb, op_a, chunk=min(512, n_tri))
-    # the kernel's alpha<1e-4 early-out can stop accumulating where the
+        o, d, dist, v0, e1, e2, op_rgb, op_a, chunk=min(512, n_tri))
+    # the walk's alpha<1e-4 early-out can stop accumulating where the
     # reference product is already ~0 — compare where alpha is live
     live = np.asarray(a_ref) >= 1e-3
     assert np.allclose(np.asarray(a)[live], np.asarray(a_ref)[live],
@@ -97,8 +95,8 @@ def test_shadow_parity(n_tri):
 
 def test_shadow_gradient_fd():
     n_tri = 60
-    v0, e1, e2 = make_soup(n_tri, seed=11, spread=1.5, size=0.6)
-    box, frames, order, base, count = build_cluster_tables(v0, e1, e2)
+    v0, e1, e2, tables = bvh_soup(*make_soup(n_tri, seed=11, spread=1.5,
+                                             size=0.6))
     rng = np.random.default_rng(12)
     op_a0 = rng.uniform(0.5, 0.9, n_tri).astype(np.float32)
     op_rgb = jnp.asarray(rng.uniform(0.3, 1.0, (n_tri, 3)).astype(np.float32))
@@ -106,15 +104,14 @@ def test_shadow_gradient_fd():
     dist = jnp.full(64, 6.0)
 
     def loss(op_a):
-        rgb, a = cluster_shadow(
-            o, d, dist, jnp.asarray(box), jnp.asarray(frames),
-            jnp.asarray(order), jnp.asarray(base), jnp.asarray(count),
-            jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2), op_rgb, op_a)
+        rgb, a = traverse.shadow(o, d, dist, *tables, v0, e1, e2, op_rgb,
+                                 op_a)
         return jnp.sum(a) + jnp.sum(rgb)
 
     g = jax.grad(loss)(jnp.asarray(op_a0))
     # finite differences on the three largest-gradient triangles
     top = np.argsort(-np.abs(np.asarray(g)))[:3]
+    assert float(jnp.abs(g).max()) > 0
     eps = 1e-3
     for k in top:
         ap = op_a0.copy(); ap[k] += eps
@@ -123,117 +120,32 @@ def test_shadow_gradient_fd():
         assert np.isclose(float(g[k]), fd, rtol=5e-2, atol=1e-3), (k, float(g[k]), fd)
 
 
-def test_streamed_path_parity(monkeypatch):
-    """Force the streamed (HBM + DMA scratch) code path by dropping
-    RESIDENT_CLUSTERS to 1 and check closest + shadow parity against the
-    resident path on the same scene — the streamed scratch indices and DMA
-    shapes otherwise have no coverage below 1280 clusters (round-4 advisor
-    finding)."""
-    import rayzath_tpu.ops.traverse_cluster as tc
-    n_tri = 600
-    v0, e1, e2 = make_soup(n_tri, seed=21)
-    box, frames, order, base, count = build_cluster_tables(v0, e1, e2)
-    o, d = make_rays(256, seed=22)
-    near = jnp.zeros(256)
-    far = jnp.full(256, 1e30)
-    rng = np.random.default_rng(23)
-    op_rgb = jnp.asarray(rng.uniform(0.3, 1.0, (n_tri, 3)).astype(np.float32))
-    op_a = jnp.asarray(rng.uniform(0.4, 1.0, n_tri).astype(np.float32))
-    args_c = (o, d, near, far, jnp.asarray(box), jnp.asarray(frames),
-              jnp.asarray(order))
-    args_s = (o, d, jnp.full(256, 9.0), jnp.asarray(box), jnp.asarray(frames),
-              jnp.asarray(order), jnp.asarray(base), jnp.asarray(count),
-              jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2), op_rgb, op_a)
-    t_res, tid_res = cluster_closest(*args_c)
-    rgb_res, a_res = cluster_shadow(*args_s)
-    assert frames.shape[0] > 1  # scene must actually span several clusters
-
-    # also force the huge-table path: scalar feeds via 128-lane VMEM reads
-    # instead of the (1 MB-limited) SMEM table
-    monkeypatch.setattr(tc, "RESIDENT_CLUSTERS", 1)
-    monkeypatch.setattr(tc, "SMEM_ROWS_MAX", 1)
-    tc._cluster_closest_impl.clear_cache()
-    tc._cluster_shadow_impl.clear_cache()
-    try:
-        t_str, tid_str = cluster_closest(*args_c)
-        rgb_str, a_str = cluster_shadow(*args_s)
-    finally:
-        monkeypatch.undo()
-        tc._cluster_closest_impl.clear_cache()
-        tc._cluster_shadow_impl.clear_cache()
-    np.testing.assert_array_equal(np.asarray(tid_str), np.asarray(tid_res))
-    np.testing.assert_allclose(np.asarray(t_str), np.asarray(t_res), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(a_str), np.asarray(a_res), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(rgb_str), np.asarray(rgb_res),
-                               rtol=1e-6)
-
-
 def test_payload_sorted_traversal_matches_unsorted():
     """The payload-carrying radix sort (ops/sort_rays.sort_payload) must be a
     pure reordering: traversal results after sort + unsort equal the
-    unsorted call exactly (closest) / to f32 product-order noise (shadow)."""
+    unsorted call exactly."""
     from rayzath_tpu.ops.sort_rays import sort_payload, unsort_payload
-    n_tri = 500
-    v0, e1, e2 = make_soup(n_tri, seed=31)
-    box, frames, order, base, count = build_cluster_tables(v0, e1, e2)
+    v0, e1, e2, tables = bvh_soup(*make_soup(500, seed=31))
     o, d = make_rays(2048, seed=32)
     near = jnp.zeros(2048)
     far = jnp.full(2048, 1e30)
-    args = (jnp.asarray(box), jnp.asarray(frames), jnp.asarray(order))
-    t0, tid0 = cluster_closest(o, d, near, far, *args)
+    t0, tid0 = traverse.closest(o, d, near, far, *tables, v0, e1, e2)
     o_s, d_s, (n_s, f_s), idx = sort_payload(o, d, (near, far))
-    t1_s, tid1_s = cluster_closest(o_s, d_s, n_s, f_s, *args)
+    t1_s, tid1_s = traverse.closest(o_s, d_s, n_s, f_s, *tables, v0, e1, e2)
     t1, tid1 = unsort_payload(idx, (t1_s, tid1_s))
     np.testing.assert_array_equal(np.asarray(tid1), np.asarray(tid0))
     np.testing.assert_allclose(np.asarray(t1), np.asarray(t0), rtol=1e-6)
 
 
-def test_tiny_path_matches_generic():
-    """Scenes with <= TINY_MAX real clusters take the unrolled tiny path
-    (no rank/clip/loop); results must equal the generic ranked path."""
-    n_tri = 300   # ~3 clusters
-    v0, e1, e2 = make_soup(n_tri, seed=41)
-    box, frames, order, base, count = build_cluster_tables(v0, e1, e2)
-    n_real = int((count > 0).sum())
-    assert 1 <= n_real <= 4
-    o, d = make_rays(512, seed=42)
-    near = jnp.zeros(512)
-    far = jnp.full(512, 1e30)
-    args = (o, d, near, far, jnp.asarray(box), jnp.asarray(frames),
-            jnp.asarray(order))
-    t_g, tid_g = cluster_closest(*args)
-    t_t, tid_t = cluster_closest(*args, n_real=n_real)
-    np.testing.assert_array_equal(np.asarray(tid_t), np.asarray(tid_g))
-    np.testing.assert_allclose(np.asarray(t_t), np.asarray(t_g), rtol=1e-7)
-
-    rng = np.random.default_rng(43)
-    op_rgb = jnp.asarray(rng.uniform(0.3, 1.0, (n_tri, 3)).astype(np.float32))
-    op_a = jnp.asarray(rng.uniform(0.4, 1.0, n_tri).astype(np.float32))
-    dist = jnp.full(512, 9.0)
-    sargs = (o, d, dist, jnp.asarray(box), jnp.asarray(frames),
-             jnp.asarray(order), jnp.asarray(base), jnp.asarray(count),
-             jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2), op_rgb, op_a)
-    rgb_g, a_g = cluster_shadow(*sargs)
-    rgb_t, a_t = cluster_shadow(*sargs, n_real=n_real)
-    # product order may differ (no front-to-back rank in the tiny path);
-    # the alpha<1e-4 early-out can also stop the generic walk earlier
-    live = np.asarray(a_g) >= 1e-3
-    np.testing.assert_allclose(np.asarray(a_t)[live], np.asarray(a_g)[live],
-                               rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(rgb_t)[live],
-                               np.asarray(rgb_g)[live], rtol=1e-5)
-
-
 def test_empty_and_single_cluster():
-    # tiny soup: one cluster, some rays guaranteed to miss
+    # one triangle: one leaf, some rays guaranteed to miss
     v0 = np.array([[0.0, 0.0, 2.0]], np.float32)
     e1 = np.array([[1.0, 0.0, 0.0]], np.float32)
     e2 = np.array([[0.0, 1.0, 0.0]], np.float32)
-    box, frames, order, base, count = build_cluster_tables(v0, e1, e2)
+    v0, e1, e2, tables = bvh_soup(v0, e1, e2)
     o = jnp.asarray([[0.2, 0.2, 0.0], [5.0, 5.0, 0.0]], jnp.float32)
     d = jnp.asarray([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]], jnp.float32)
-    t, tid = cluster_closest(o, d, jnp.zeros(2), jnp.full(2, 100.0),
-                             jnp.asarray(box), jnp.asarray(frames),
-                             jnp.asarray(order))
+    t, tid = traverse.closest(o, d, jnp.zeros(2), jnp.full(2, 100.0),
+                              *tables, v0, e1, e2)
     assert int(tid[0]) == 0 and abs(float(t[0]) - 2.0) < 1e-5
     assert int(tid[1]) == -1

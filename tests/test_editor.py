@@ -87,9 +87,9 @@ def test_viewer_edit_endpoints_restart_render(tmp_path):
     emission from the HTTP surface, see accumulation restart, save the
     scene."""
     world = rz.scenes.multi_light(32, 32)
-    # dense XLA intersection (no interpret-mode Pallas): off-TPU the kernels
-    # run under the Pallas interpreter, whose first cycle can blow the CI
-    # wait — the HTTP/restart logic under test is identical either way
+    # dense XLA intersection: on the CPU the BVH walk's kernels run under
+    # the Pallas interpreter, whose first cycle can blow the test's wait —
+    # the HTTP/restart logic under test is identical either way
     v = Viewer(world, rz.RenderConfig(tracing=rz.Tracing(max_depth=2, rpp=2),
                                       brute_force_threshold=100000),
                rpp_per_cycle=2)

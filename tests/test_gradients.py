@@ -109,25 +109,7 @@ def test_training_step_descends():
 def lit_world():
     """Spot + direct light scene with a glossy floor and a blocker (shadow
     rays cross real geometry)."""
-    w = rz.World()
-    floor_m = w.create_material("floor", color=(0.6, 0.6, 0.6, 1.0),
-                                roughness=0.3, metalness=0.2)
-    blocker_m = w.create_material("blocker", color=(0.8, 0.3, 0.2, 0.55))
-    plane = w.generate_mesh("plane", sides=4, width=6.0, height=6.0)
-    w.create_instance(name="floor", mesh=plane, materials=[floor_m])
-    cube = w.generate_mesh("cube")
-    from rayzath_tpu.utils.hostmath import Transform
-    w.create_instance(name="blocker", mesh=cube, materials=[blocker_m],
-                      transform=Transform(position=(0, 1.0, 0),
-                                          scale=(0.8, 0.2, 0.8)))
-    w.create_spot_light(position=(0.0, 3.0, 0.0), direction=(0, -1, 0),
-                        size=0.4, emission=30.0, beam_angle=1.2)
-    w.create_direct_light(direction=(-0.4, -1.0, 0.2), emission=5.0,
-                          angular_size=0.1)
-    cam = w.create_camera("cam", position=(0, 2.0, -4.0), resolution=(16, 16),
-                          aperture=0.01, exposure_time=1.0)
-    cam.look_at((0, 0.3, 0))
-    return w
+    return rz.scenes.lit_blocker(16, 16)
 
 
 @pytest.mark.parametrize("param,idx,eps", [
@@ -190,16 +172,16 @@ def test_grad_fd_atlas_texel():
 
 
 def test_grad_fd_through_cluster_shadow_at_64px():
-    """FD check that crosses the cluster-shadow custom_vjp at 64^2 image
-    scale (VERDICT item 6): the blocker's alpha drives shadow transmission,
-    so dL/d(alpha) flows through cluster_shadow's dense replay backward."""
+    """FD check that crosses the shadow walk's custom_vjp at 64^2 image
+    scale: the blocker's alpha drives shadow transmission, so dL/d(alpha)
+    flows through ops.traverse.shadow's dense replay backward."""
     w = lit_world()
     for c in w.cameras:
         c.resolution = (64, 64)
     cfg = rz.RenderConfig(tracing=rz.Tracing(max_depth=2, rpp=2)).with_(
-        brute_force_threshold=0)    # force the cluster kernels
+        brute_force_threshold=0)    # every scene walks the BVH
     scene = compile_world(w)
-    assert scene.cl_box is not None
+    assert scene.n_triangles > cfg.brute_force_threshold
     cam = compile_camera(w.cameras[0])
     state = init_state(64, 64)
     key = jax.random.key(4)

@@ -86,7 +86,7 @@ def test_prepare_tasks(tmp_path):
     assert len(tasks) == 1
     t = tasks[0]
     assert t.scene_path == str(scene_file)
-    assert t.engine == ["CPU", "TPU"]  # CUDAGPU aliases to the accelerated engine
+    assert t.engine == ["CPU", "CUDAGPU"]  # the reference's engine names
     assert t.rpp == 8 and t.timeout == 30 and t.max_depth == 4
 
 

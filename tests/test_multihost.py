@@ -1,6 +1,6 @@
 """Multi-host runtime: two real OS processes must render bit-identically to
 one process (the "fake cluster" test SURVEY §4 calls for; reference has no
-distributed runtime at all — this is the TPU-native extension of §2.7).
+distributed runtime at all — this is the multi-host extension of §2.7).
 
 Each worker process initializes the JAX distributed runtime on the CPU
 backend with one local device, renders its row band of a small Cornell

@@ -157,15 +157,14 @@ def test_texture_alpha_shadow_not_solid():
 
 
 def test_decision_exact_hit_ids_pinned():
-    """Pin the parity escape hatch (VERDICT r4 item 8): compare per-ray HIT
-    IDS from the cluster kernel against an f64 Moller-Trumbore reference,
+    """Pin the parity escape hatch: compare per-ray HIT IDS from the BVH
+    walk (ops.traverse.closest) against an f64 Moller-Trumbore reference,
     and allow mismatches ONLY on rays the f64 reference itself classifies as
     chaotic (near a barycentric boundary or a closest-vs-second t tie). A
     traversal bug confined to any non-boundary pixel set fails this test —
     it can no longer hide inside a tone-mapped tolerance."""
     from rayzath_tpu.ops.camera import pixel_grid, generate_rays
-    from rayzath_tpu.ops.traverse_cluster import (build_cluster_tables,
-                                                  cluster_closest)
+    from rayzath_tpu.ops import traverse
 
     w = rz.scenes.teapot_like(64, 64)
     scene = compile_world(w)
@@ -176,8 +175,9 @@ def test_decision_exact_hit_ids_pinned():
     o, d = generate_rays(cam, pix, u)
     near = jnp.zeros(r)
     far = jnp.full(r, 1e30)
-    t_k, tid_k = cluster_closest(o, d, near, far, scene.cl_box, scene.cl_lw,
-                                 scene.cl_order)
+    t_k, tid_k = traverse.closest(o, d, near, far, scene.aabb_links,
+                                  scene.node_begin, scene.node_count,
+                                  scene.tri_v0, scene.tri_e1, scene.tri_e2)
 
     # f64 Moller-Trumbore over the same soup
     v0 = np.asarray(scene.tri_v0, np.float64)[: scene.n_triangles]

@@ -76,16 +76,16 @@ def test_render_steps_donates_state():
 
 
 def test_sharded_two_level_keeps_pallas_kernels():
-    """Multi-chip path must run the Pallas TLAS kernels (round 1 demoted the
-    sharded path to the slow XLA walk; shard_map now runs the full integrator
-    per device, bit-identical to single-device thanks to the row-keyed RNG)."""
+    """Sharded instanced render matches single device: shard_map runs the
+    full integrator, BVH-walk kernels included, per device on an instanced
+    world expanded to the soup — identical to a single-device render thanks
+    to the row-keyed RNG."""
     n = len(jax.devices())
     W = H = 16
-    world = rz.scenes.cornell_box(W, H)
-    cfg = rz.RenderConfig(tracing=rz.Tracing(max_depth=3, rpp=2),
-                          two_level=True)
-    scene = compile_world(world, two_level=True)
-    assert scene.two_level  # the TLAS Pallas kernels are in the traced path
+    world = rz.scenes.textured_room(W, H)
+    cfg = rz.RenderConfig(tracing=rz.Tracing(max_depth=3, rpp=2))
+    scene = compile_world(world)
+    assert scene.n_instances > 1
     cam = compile_camera(world.cameras[0])
     key = jax.random.key(11)
 
@@ -97,3 +97,32 @@ def test_sharded_two_level_keeps_pallas_kernels():
                                np.asarray(single.accum), rtol=2e-4, atol=1e-4)
     shard_shapes = {s.data.shape for s in sharded.accum.addressable_shards}
     assert shard_shapes == {(H // n, W, 4)}
+
+
+def test_sharded_training_step_matches_single_device():
+    """training_step over a mesh runs the integrator (walk kernels included)
+    per device under shard_map and sums loss and gradients over the rows:
+    same loss and same updated parameters as one device."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from rayzath_tpu.parallel import replicate_scene, shard_state, training_step
+    W = H = 16
+    world = rz.scenes.cornell_box(W, H)
+    cfg = rz.RenderConfig(tracing=rz.Tracing(max_depth=3, rpp=2))
+    scene = compile_world(world)
+    cam = compile_camera(world.cameras[0])
+    key = jax.random.key(3)
+    target = jax.numpy.full((H, W, 3), 0.1)
+    lr = jax.numpy.float32(0.1)
+    s1, _, l1 = training_step(scene, cam, cfg, init_state(W, H), key, target,
+                              lr, 2)
+    mesh = make_mesh(jax.devices())
+    s8, st8, l8 = training_step(
+        replicate_scene(scene, mesh), replicate_scene(cam, mesh), cfg,
+        shard_state(init_state(W, H), mesh), key,
+        jax.device_put(target, NamedSharding(mesh, P("rays"))), lr, 2,
+        mesh=mesh)
+    assert abs(float(l8) - float(l1)) <= 1e-5 * abs(float(l1))
+    np.testing.assert_allclose(np.asarray(s8.mat_color),
+                               np.asarray(s1.mat_color), rtol=1e-5, atol=1e-7)
+    shard_shapes = {s.data.shape for s in st8.accum.addressable_shards}
+    assert shard_shapes == {(H // len(jax.devices()), W, 4)}

@@ -1,12 +1,7 @@
-"""Two-level (instanced cluster) traversal: parity vs the expanded soup.
-
-The two compile modes of the same World must agree: the soup pre-transforms
-every instance's mesh into world space (duplicating shared meshes), the
-two-level path keeps one object-space cluster table per mesh and transforms
-rays per unit (reference cuda_bvh.cuh:114-171 + cuda_instance.cuh:167-264,
-mapped onto ops/traverse_cluster.py's instanced kernels). Hits, shadows,
-full renders, gradients, and picking are compared across modes, and the
-HBM-streamed kernel variant must be bit-identical to the resident one.
+"""Instanced worlds: every instance's mesh is expanded into the world-space
+triangle soup (one flattened BVH; the reference walks a TLAS over instances
+and a BLAS per mesh, cuda_bvh.cuh:114-171 + cuda_instance.cuh:167-264).
+Gradients, picking and per-instance edits must work on the expansion.
 """
 import jax
 import jax.numpy as jnp
@@ -15,130 +10,42 @@ import pytest
 
 import rayzath_tpu as rz
 from rayzath_tpu.models.device_scene import compile_world, compile_camera
-from rayzath_tpu.engine.integrator import render_steps_preserve
 from rayzath_tpu.engine.state import init_state
-from rayzath_tpu.ops.camera import pixel_grid, generate_rays
-from rayzath_tpu.ops.intersect import brute_force_closest
-from rayzath_tpu.ops.traverse_cluster import (cluster_closest_inst,
-                                              cluster_shadow_inst)
-
-
-def _shadow_inst(tl, o, d, dist, mat_color=None):
-    mc = tl.mat_color if mat_color is None else mat_color
-    return cluster_shadow_inst(
-        o, d, dist, tl.ti_box, tl.ti_rows, tl.cl_obox, tl.cl_lw,
-        tl.cl_slot, tl.tri_slot, tl.inst_slot_map, mc,
-        tl.tri_v0, tl.tri_e1, tl.tri_e2,
-        tl.exp_tri, tl.exp_inst, tl.inst_fwd)
 
 
 @pytest.fixture(scope="module")
 def instanced():
     """textured_room: three instances share one sphere mesh."""
     w = rz.scenes.textured_room(48, 32)
-    tl = compile_world(w, two_level=True)
-    soup = compile_world(w, two_level=False)
-    cam = compile_camera(w.cameras[0])
-    r = 48 * 32
-    u = jax.random.uniform(jax.random.key(3), (r, 4))
-    o, d = generate_rays(cam, pixel_grid(48, 32), u)
-    return w, tl, soup, o, d
+    return w, compile_world(w)
 
 
-def test_two_level_shares_meshes(instanced):
-    w, tl, soup, o, d = instanced
-    assert tl.two_level and not soup.two_level
-    # 3 sphere instances of one mesh: object storage must be much smaller
-    assert tl.n_triangles < soup.n_triangles
-    n_sphere = next(i.mesh.triangle_count for i in w.instances
-                    if i.name.startswith("ball"))
-    assert soup.n_triangles - tl.n_triangles == 2 * n_sphere
-    # frames are shared: instance cluster ranges cover the mesh clusters
-    assert tl.ti_rows.shape[0] >= 3
-
-
-def test_inst_closest_matches_expanded_brute_force(instanced):
-    w, tl, soup, o, d = instanced
-    r = o.shape[0]
-    near = jnp.full(r, 1e-4)
-    far = jnp.full(r, 1e30)
-    t, tid, inst = cluster_closest_inst(o, d, near, far, tl.ti_box,
-                                        tl.ti_rows, tl.cl_obox, tl.cl_lw)
-    ts, tids, *_ = brute_force_closest(o, d, near, far, soup.tri_v0,
-                                       soup.tri_e1, soup.tri_e2)
-    hit = np.asarray(tid) >= 0
-    hit_s = np.asarray(tids) >= 0
-    assert (hit == hit_s).all()
-    assert hit.any()
-    np.testing.assert_allclose(np.asarray(t)[hit], np.asarray(ts)[hit],
-                               rtol=1e-4, atol=1e-5)
-    # instance ids must match the soup's per-triangle instance tags
-    inst_s = np.asarray(soup.tri_inst)[np.maximum(np.asarray(tids), 0)]
-    agree = np.asarray(inst)[hit] == inst_s[hit]
-    assert agree.mean() > 0.999  # ties on shared edges may differ
-
-
-def test_inst_shadow_matches_soup(instanced):
-    w, tl, soup, o, d = instanced
-    r = o.shape[0]
-    dist = jnp.full(r, 30.0)
-    rgb, a = _shadow_inst(tl, o, d, dist)
-    from rayzath_tpu.ops.intersect import project_shadow
-    op_rgb = soup.mat_color[soup.tri_mat][:, :3]
-    op_a = 1.0 - soup.mat_color[soup.tri_mat][:, 3]
-    rgb_s, a_s = project_shadow(o, d, dist, soup.tri_pw, soup.tri_pc,
-                                op_rgb, op_a, chunk=512)
-    live = np.asarray(a_s) >= 1e-3
-    np.testing.assert_allclose(np.asarray(a)[live], np.asarray(a_s)[live],
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(rgb)[live], np.asarray(rgb_s)[live],
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_two_level_render_matches_soup(instanced):
-    w, tl, soup, o, d = instanced
-    cam = compile_camera(w.cameras[0])
-    key = jax.random.key(7)
-    cfg = rz.RenderConfig(tracing=rz.Tracing(max_depth=3, rpp=2)).with_(
-        brute_force_threshold=0)
-    imgs = []
-    for scene in (tl, soup):
-        st = render_steps_preserve(scene, cam, cfg, init_state(48, 32), key, 3)
-        imgs.append(np.asarray(st.accum))
-    assert not np.isnan(imgs[0]).any()
-    # decisions are fp-sensitive across the two geometric formulations; the
-    # images must still agree except at isolated decision flips
-    rel = np.abs(imgs[0] - imgs[1]) / (np.abs(imgs[1]) + 1e-3)
-    assert (rel < 1e-3).mean() > 0.999
-
-
-def test_streamed_variant_is_bit_identical(instanced, monkeypatch):
-    w, tl, soup, o, d = instanced
-    cam = compile_camera(w.cameras[0])
-    key = jax.random.key(7)
-    cfg = rz.RenderConfig(tracing=rz.Tracing(max_depth=2, rpp=1))
-    st_res = render_steps_preserve(tl, cam, cfg, init_state(48, 32), key, 1)
-    res = np.asarray(st_res.accum)
-    import rayzath_tpu.ops.traverse_cluster as tc
-    monkeypatch.setattr(tc, "RESIDENT_CLUSTERS", 1)
-    jax.clear_caches()  # the residency flag is baked at trace time
-    st_str = render_steps_preserve(tl, cam, cfg, init_state(48, 32), key, 1)
-    assert (np.asarray(st_str.accum) == res).all()
-    jax.clear_caches()
+def test_instanced_world_compiles_to_expanded_soup(instanced):
+    w, soup = instanced
+    live = [i for i in w.instances if i.mesh is not None]
+    balls = [i for i in live if i.name.startswith("ball")]
+    assert len(balls) >= 2 and len({id(i.mesh) for i in balls}) == 1
+    # one copy of the shared mesh per instance
+    assert soup.n_triangles == sum(i.mesh.triangle_count for i in live)
+    # every instance's triangles carry its own instance id
+    inst = np.asarray(soup.tri_inst)[:soup.n_triangles]
+    for gi, i in enumerate(w.instances):
+        if i in balls:
+            assert (inst == gi).sum() == i.mesh.triangle_count
 
 
 def test_two_level_gradients_flow(instanced):
-    w, tl, soup, o, d = instanced
+    w, soup = instanced
     from rayzath_tpu.parallel.train import image_loss
     cam = compile_camera(w.cameras[0])
     cfg = rz.RenderConfig(tracing=rz.Tracing(max_depth=2, rpp=1))
     state = init_state(48, 32)
     key = jax.random.key(7)
     target = jnp.full((32, 48, 3), 0.1)
-    params = {k: getattr(tl, k) for k in ("mat_color", "mat_roughness")}
+    params = {k: getattr(soup, k) for k in ("mat_color", "mat_roughness")}
 
     def loss_fn(p):
-        return image_loss(tl.replace(**p), cam, cfg, state, key, target, 1)[0]
+        return image_loss(soup.replace(**p), cam, cfg, state, key, target, 1)[0]
 
     grads = jax.grad(loss_fn)(params)
     for k, g in grads.items():
@@ -146,44 +53,9 @@ def test_two_level_gradients_flow(instanced):
     assert float(jnp.abs(grads["mat_color"]).max()) > 0
 
 
-def test_inst_shadow_gradient_matches_dense_replay(instanced):
-    """custom_vjp backward (dense replay over the expanded set) must match
-    differentiating the replay directly."""
-    w, tl, soup, o, d = instanced
-    r = 128
-    o, d = o[:r], d[:r]
-    dist = jnp.full(r, 25.0)
-
-    def loss_kernel(mat_color):
-        rgb, a = _shadow_inst(tl, o, d, dist, mat_color)
-        return jnp.sum(rgb * a[:, None])
-
-    def loss_dense(mat_color):
-        from rayzath_tpu.ops.intersect import project_shadow
-        from rayzath_tpu.ops.traverse_cluster import _frames_jnp
-        exp_tri, exp_inst, inst_fwd = tl.exp_tri, tl.exp_inst, tl.inst_fwd
-        a4 = inst_fwd[exp_inst].reshape(-1, 3, 4)
-        v0 = jnp.einsum("kij,kj->ki", a4[:, :, :3],
-                        tl.tri_v0[exp_tri]) + a4[:, :, 3]
-        e1 = jnp.einsum("kij,kj->ki", a4[:, :, :3], tl.tri_e1[exp_tri])
-        e2 = jnp.einsum("kij,kj->ki", a4[:, :, :3], tl.tri_e2[exp_tri])
-        mid = tl.inst_slot_map[exp_inst, tl.tri_slot[exp_tri]]
-        mc = mat_color[mid]
-        pw, pc = _frames_jnp(v0, e1, e2)
-        rgb, a = project_shadow(o, d, dist, pw, pc, mc[:, :3],
-                                1.0 - mc[:, 3], chunk=min(512, v0.shape[0]))
-        return jnp.sum(rgb * a[:, None])
-
-    g_k = jax.grad(loss_kernel)(tl.mat_color)
-    g_d = jax.grad(loss_dense)(tl.mat_color)
-    np.testing.assert_allclose(np.asarray(g_k), np.asarray(g_d),
-                               rtol=1e-5, atol=1e-6)
-
-
 def test_picking_resolves_instances(instanced):
-    w, tl, soup, o, d = instanced
-    r = rz.Renderer(w, rz.RenderConfig(tracing=rz.Tracing(max_depth=2, rpp=4),
-                                       two_level=True))
+    w, soup = instanced
+    r = rz.Renderer(w, rz.RenderConfig(tracing=rz.Tracing(max_depth=2, rpp=4)))
     r.render(rpp=4)  # depth buffer fills on the first camera segment (pass 2)
     cam = w.cameras[0]
     found = set()
@@ -196,17 +68,28 @@ def test_picking_resolves_instances(instanced):
     assert all(0 <= i < len(w.instances) for i in found)
 
 
-def test_moving_one_instance_only_moves_it(instanced):
-    """Editing one instance's transform changes the unit tables but not the
-    shared mesh cluster frames or object-space geometry."""
-    w0, tl, soup, o, d = instanced
+def test_moving_one_instance_only_moves_it():
+    """Editing one instance's transform moves exactly that instance's
+    triangles in the soup; every other instance keeps its geometry."""
     w = rz.scenes.textured_room(48, 32)
-    a = compile_world(w, two_level=True)
+    a = compile_world(w)
     from rayzath_tpu.utils.hostmath import Transform
-    ball = next(i for i in w.instances if i.name == "ball 1")
+    gi, ball = next((k, i) for k, i in enumerate(w.instances)
+                    if i.name == "ball 1")
     ball.transform = Transform(position=(0.5, 0.9, -0.5),
                                scale=ball.transform.scale)
-    b = compile_world(w, two_level=True)
-    assert (np.asarray(a.cl_lw) == np.asarray(b.cl_lw)).all()
-    assert (np.asarray(a.tri_v0) == np.asarray(b.tri_v0)).all()
-    assert not (np.asarray(a.ti_rows) == np.asarray(b.ti_rows)).all()
+    b = compile_world(w)
+    assert a.n_triangles == b.n_triangles
+
+    def per_instance(scene):
+        inst = np.asarray(scene.tri_inst)[:scene.n_triangles]
+        v0 = np.asarray(scene.tri_v0)[:scene.n_triangles]
+        return {i: np.sort(v0[inst == i], axis=0) for i in np.unique(inst)}
+
+    pa, pb = per_instance(a), per_instance(b)
+    assert pa.keys() == pb.keys()
+    for i in pa:
+        if i == gi:
+            assert not np.allclose(pa[i], pb[i])
+        else:
+            np.testing.assert_array_equal(pa[i], pb[i])
